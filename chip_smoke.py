@@ -1,0 +1,539 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. device  — requires CUDA; prints the card's name and power limit as
+   ``nvidia-smi`` gives them.
+2. build   — compiles every ``src/repro_torch/**/csrc/*.cu`` for sm_90a,
+   one ``nvcc`` per source, all started together.
+3. kernels — holds each hand-written kernel against its plain PyTorch
+   version at the main path's shapes (bitslice MVM bit for bit, paged
+   attention within the stated tolerance and its pools bit for bit)
+   and times kernel, plain version and one PyTorch library call that
+   computes the same function, beside the card's least time (bound).
+4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
+   width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
+   chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
+   greedy tokens each.  Checks every completion, the launch counts per
+   decode step and prefill chunk, then runs one prefill chunk and one
+   decode step of the same model on the ``cuda`` and the ``torch``
+   backends and compares their logits.
+5. serve int8 — the same run with ``int8`` weights.
+6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+``--only kernels`` stops after phase 3 (bring-up of a kernel change).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# published peaks of the card (NVIDIA data sheets, dense):
+# (device-memory bytes/s, bf16 flop/s, int8 op/s)
+PEAKS = {"SXM": (3.35e12, 989e12, 1979e12),
+         "PCIe": (2.0e12, 756e12, 1513e12)}
+
+# K3's tolerance against its plain version, bf16 pools: the kernel sums
+# scores and p*V in f32 in another order than the composition, so a
+# probability can round to the neighbouring bf16 value (2^-8 relative)
+# and the output to the neighbouring bf16 value; with O(1) inputs that
+# is within 2e-2 absolute + 2e-2 relative.
+ATTN_ATOL = 2e-2
+ATTN_RTOL = 2e-2
+
+# cuda-vs-torch backend logits of the full model (bf16 activations):
+# every linear is exact integer arithmetic on equal inputs, so the two
+# backends can differ only through attention's f32 summation order,
+# which can move a bf16 activation by one ulp.  The bound is read in
+# the same run: the logits' change when one bf16 ulp is added to every
+# other channel of layer 0's attention input (its norm scale times
+# 1 + ULP).  The greedy token must be the same on every row.
+ULP = 2.0 ** -7
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def peaks(name: str) -> tuple[float, float, float]:
+    return PEAKS["PCIe" if "PCIe" in name else "SXM"]
+
+
+def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Per-call device time of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed between CUDA events, so host dispatch does
+    not enter the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+class Rotating:
+    """Copies of a call's inputs cycled between launches so that their
+    total exceeds the 50 MB L2 cache: every launch finds its weights
+    cold, as on the main path, where 36 layers' weights pass between
+    two uses of one."""
+
+    def __init__(self, make, nbytes: int, total: int = 192 << 20):
+        self.items = [make() for _ in range(max(1, min(64, -(-total //
+                                                             max(nbytes,
+                                                                 1)))))]
+        self.i = 0
+
+    def next(self):
+        self.i = (self.i + 1) % len(self.items)
+        return self.items[self.i]
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+MVM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
+MVM_ROWS = [1, 4, 16]
+
+
+def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
+    import torch
+    from repro_torch.core import bitslice
+    from repro_torch.kernels.bitslice_mvm import ops
+    bw, _, int8_rate = peaks(gpu_name)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for k, n in MVM_SHAPES:
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
+        wq8 = wq.to(torch.int8)
+        one = wq8[None]
+        for m in MVM_ROWS:
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+            scale = torch.rand((m, 1), generator=g, device=dev) * 1e-3
+            got1 = ops.bitslice_mvm_planes_scaled(x, planes, scale,
+                                                  backend="cuda")
+            ref1 = ops.bitslice_mvm_planes_scaled(x, planes, scale,
+                                                  backend="torch")
+            got2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8,
+                                           backend="cuda")
+            ref2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8,
+                                           backend="torch")
+            got4 = ops.bitslice_mvm_planes(x, planes, backend="cuda")
+            torch.cuda.synchronize()
+            exact = (torch.equal(got1, ref1) and torch.equal(got2, ref2)
+                     and torch.equal(got4, ref2))
+            err1 = (got1 - ref1).abs().max().item()
+            err2 = (got2 - ref2).abs().max().item()
+            if not exact:
+                raise AssertionError(
+                    f"bitslice_mvm not bit-exact at M={m} K={k} N={n}: "
+                    f"scaled max|diff|={err1}, int max|diff|={err2}, "
+                    f"4-plane int equal="
+                    f"{torch.equal(got4, ref2)}")
+            # timings with the weights rotated past the L2 cache
+            rp = Rotating(lambda: planes.clone(), planes.numel())
+            rw = Rotating(lambda: one.clone(), one.numel())
+            xpad = torch.zeros((32, k), dtype=torch.int8, device=dev)
+            xpad[:m] = x
+            k1 = lambda: ops.bitslice_mvm_planes_scaled(   # noqa: E731
+                x, rp.next(), scale, backend="cuda")
+            k2 = lambda: ops.bitslice_mvm_planes(            # noqa: E731
+                x, rw.next(), bits_per_slice=8, backend="cuda")
+            t1, t2 = device_ms(k1), device_ms(k2)
+            p1 = device_ms(lambda: ops.bitslice_mvm_planes_scaled(
+                x, rp.next(), scale, backend="torch"), iters=5)
+            p2 = device_ms(lambda: ops.bitslice_mvm_planes(
+                x, rw.next(), bits_per_slice=8, backend="torch"), iters=5)
+            lib = device_ms(lambda: torch._int_mm(xpad, rw.next()[0]))
+            b1 = max((m * k + 4 * k * n + 4 * m + 4 * m * n) / bw,
+                     2 * 4 * m * k * n / int8_rate) * 1e3
+            b2 = max((m * k + k * n + 4 * m * n) / bw,
+                     2 * m * k * n / int8_rate) * 1e3
+            log(f"mvm M={m} K={k} N={n}: exact | K1 scaled {t1:.4f} ms "
+                f"(plain {p1:.4f}, bound {b1:.4f}) | K2 int8 {t2:.4f} ms "
+                f"(plain {p2:.4f}, bound {b2:.4f}) | _int_mm(M=32) "
+                f"{lib:.4f} ms")
+            if (m, k, n) == (4, 2048, 11008):
+                rows["bitslice_mvm_scaled"] = dict(
+                    max_abs_err=err1, ms=t1, plain_ms=p1, bound_ms=b1,
+                    bound_by="bytes", library_ms=lib)
+                rows["bitslice_mvm"] = dict(
+                    max_abs_err=err2, ms=t2, plain_ms=p2, bound_ms=b2,
+                    bound_by="bytes", library_ms=lib)
+    return rows
+
+
+def _attn_case(dev, s: int, seed: int):
+    """Qwen2.5-3B's head layout at the serve run's geometry: 4 rows,
+    blocks of 16, a 6-column table, window kv_len 81.  Row 2 is inactive
+    (its table is all trash); row 3 writes past its table width."""
+    import torch
+    b, kvh, grp, hd, bs, w, kv_len = 4, 2, 8, 128, 16, 6, 81
+    nb = 1 + b * w
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q = rnd(b, s, kvh, grp, hd)
+    k_new, v_new = rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+    k_pool, v_pool = rnd(nb, bs, kvh, hd), rnd(nb, bs, kvh, hd)
+    table = torch.arange(1, nb, device=dev, dtype=torch.int32).reshape(b, w)
+    table[2] = 0
+    if s == 1:
+        ci = [40, 70, 5, w * bs + 3]
+    else:
+        ci = [32, 64, 0, w * bs - 8]
+    cache_index = torch.tensor(ci, dtype=torch.int32, device=dev)
+    return (q, k_new, v_new, k_pool, v_pool, table, table.clone(),
+            cache_index), kv_len
+
+
+def _attn_bound(args, kv_len: int, bw: float, flops: float) -> float:
+    q, k_new, _, k_pool, _, table, _, ci = args
+    b, s, kvh, grp, hd = q.shape
+    el = k_pool.element_size()
+    nbytes = (q.numel() + 2 * k_new.numel()) * el          # q, new K/V in
+    nbytes += 2 * k_new.numel() * el                       # cells stored
+    nbytes += q.numel() * el + 2 * table.numel() * 4 + b * 4   # out, tables
+    ops = 0
+    for row in range(b):
+        c = int(ci[row])
+        nbytes += 2 * min(c + s, kv_len) * kvh * hd * el   # K and V read
+        for si in range(s):
+            ops += 4 * hd * min(c + si + 1, kv_len) * kvh * grp
+    return max(nbytes / bw, ops / flops) * 1e3
+
+
+def check_attention(dev, gpu_name: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops, ref
+    bw, flops, _ = peaks(gpu_name)
+    row = None
+    active = [0, 1, 3]
+    for s in (1, 16):
+        args, kv_len = _attn_case(dev, s, seed=s)
+        kp_ref, vp_ref, out_ref = ops.paged_attention(
+            *args, kv_len=kv_len, backend="torch")
+        kp, vp = args[3].clone(), args[4].clone()
+        kargs = args[:3] + (kp, vp) + args[5:]
+        _, _, out = ops.paged_attention(*kargs, kv_len=kv_len,
+                                        backend="cuda")
+        torch.cuda.synchronize()
+        # the trash block 0 takes colliding writes of the inactive and
+        # the past-width row (unordered between rows, never attended by
+        # an active row); every other block must be equal bit for bit
+        pools_equal = (torch.equal(kp[1:], kp_ref[1:])
+                       and torch.equal(vp[1:], vp_ref[1:]))
+        o, r = out[active].float(), out_ref[active].float()
+        err = (o - r).abs().max().item()
+        close = torch.allclose(o, r, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+        finite = bool(torch.isfinite(out[active].float()).all())
+        if not (pools_equal and close and finite):
+            raise AssertionError(
+                f"paged_attention S={s}: pools equal={pools_equal}, "
+                f"max|diff|={err} (atol {ATTN_ATOL}, rtol {ATTN_RTOL}), "
+                f"finite={finite}")
+        # timings: pools rotated past the L2 cache like the weights
+        nbytes = 2 * args[3].numel() * args[3].element_size()
+        rot = Rotating(lambda: (args[3].clone(), args[4].clone()), nbytes)
+
+        def kern():
+            k_p, v_p = rot.next()
+            return ops.paged_attention(*args[:3], k_p, v_p, *args[5:],
+                                       kv_len=kv_len, backend="cuda")
+
+        def plain():
+            k_p, v_p = rot.next()
+            return ops.paged_attention(*args[:3], k_p, v_p, *args[5:],
+                                       kv_len=kv_len, backend="torch")
+
+        t = device_ms(kern)
+        p = device_ms(plain, iters=5)
+        q = args[0]
+        b, _, kvh, grp, hd = q.shape
+        qh = q.reshape(b, s, kvh * grp, hd).transpose(1, 2)
+        kg = ref.gather_rows(kp_ref, args[5], kv_len).transpose(1, 2)
+        vg = ref.gather_rows(vp_ref, args[5], kv_len).transpose(1, 2)
+        mask = ref.causal_mask(args[7], s, kg.shape[2])[:, None]
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qh, kg, vg, attn_mask=mask, enable_gqa=True))
+        bound = _attn_bound(args, kv_len, bw, flops)
+        log(f"paged_attention B=4 S={s} KV=2 G=8 hd=128 bs=16 T={kv_len}: "
+            f"max|diff|={err:.3g} pools bit-equal | kernel {t:.4f} ms "
+            f"(plain {p:.4f}, bound {bound:.4f}) | sdpa {lib:.4f} ms")
+        if s == 1:
+            row = dict(max_abs_err=err, ms=t, plain_ms=p, bound_ms=bound,
+                       bound_by="bytes", library_ms=lib)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5: serving the full-width model
+# ---------------------------------------------------------------------------
+
+SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch-slots", "4", "--requests",
+              "6", "--min-prompt-len", "20", "--prompt-len", "64", "--gen",
+              "16", "--kv-block-size", "16", "--chunked-prefill", "--seed",
+              "0", "--device", "cuda"]
+MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm"}
+
+
+def serve_run(mode: str, smi: str) -> tuple[dict, dict]:
+    """One run of the port's CLI; returns its result and the launch
+    counts of exactly that run."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    res = serve.main(SERVE_ARGS + ["--pum-mode", mode])
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched = res["scheduler"]
+    cfg = sched.cfg
+    comps = res["completions"]
+    vp = sched.params["embed"].shape[0]
+    if len(comps) != 6 or any(
+            len(c.tokens) != 16 or c.finish_reason != "length"
+            or not all(0 <= t < vp for t in c.tokens)
+            for c in comps.values()):
+        raise AssertionError(f"{mode}: completions "
+                             f"{[(c.rid, c.tokens) for c in comps.values()]}")
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    layers = cfg.num_layers
+    mvm = MVM_OF_MODE[mode]
+    other = MVM_OF_MODE["int8" if mode == "pum" else "pum"]
+    want = {mvm: 7 * layers * (steps + chunks), other: 0,
+            "paged_attention": layers * (steps + chunks)}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{mode}: launches {got}, expected {want} for "
+                             f"{steps} decode steps + {chunks} chunks")
+    log(f"serve {mode}: {cfg.name} {layers} layers d_model {cfg.d_model}, "
+        f"6 requests x 16 tokens, {steps} decode steps, {chunks} prefill "
+        f"chunks; launches {got} = per step and chunk "
+        f"{mvm} 7x{layers}, paged_attention {layers}")
+    log(f"serve {mode}: decode_ms_per_step={res['decode_ms']:.3f} "
+        f"tokens_per_s={res['tokens'] / res['wall_s']:.2f} "
+        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"on {smi}")
+    return res, launches
+
+
+def backend_parity(sched) -> None:
+    """One prefill chunk and one decode step of the served model, from
+    the same fresh pool, on the ``cuda`` and the ``torch`` backends, and
+    on ``cuda`` once more with layer 0's attention input moved by one
+    bf16 ulp on every other channel: that run's change is the bound."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    cfg, params, dev = sched.cfg, sched.params, sched.device
+    bs, max_len = sched.block_size, sched.max_len
+    w = sched.table_width
+    g = torch.Generator(device="cpu").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, bs + 1), generator=g)
+    toks = toks.to(dev, torch.int32)
+    table = torch.arange(1, w + 1, dtype=torch.int32, device=dev)[None]
+
+    def chunk_and_step(p, backend):
+        states = lm.init_paged_state(cfg, 1, max_len, num_blocks=w,
+                                     block_size=bs, device=dev)
+        with torch.inference_mode(), registry.use_backend(backend):
+            chunk, states = lm.forward(
+                p, toks[:, :bs], cfg, states=states,
+                cache_index=torch.zeros(1, dtype=torch.int32, device=dev),
+                block_table=table, kv_len=max_len, last_only=True)
+            step, states = lm.forward(
+                p, toks[:, bs:], cfg, states=states,
+                cache_index=torch.full((1,), bs, dtype=torch.int32,
+                                       device=dev),
+                block_table=table, kv_len=max_len, last_only=True)
+        return torch.cat([chunk, step], dim=1).float()
+
+    a = chunk_and_step(params, "cuda")
+    b = chunk_and_step(params, "torch")
+    norm = dict(params["blocks"][0]["norm1"])
+    nudge = torch.ones_like(norm["scale"])
+    nudge[::2] += ULP
+    norm["scale"] = norm["scale"] * nudge
+    nudged = dict(params, blocks=[dict(params["blocks"][0], norm1=norm),
+                                  *params["blocks"][1:]])
+    c = chunk_and_step(nudged, "cuda")
+    if not all(bool(torch.isfinite(t).all()) for t in (a, b, c)):
+        raise AssertionError("non-finite logits")
+    err = (a - b).abs().max().item()
+    bound = (c - a).abs().max().item()
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    log(f"backend parity {cfg.pum.mode}: chunk + decode logits "
+        f"max|cuda - torch| = {err:.4g}, bound (one-ulp nudge of layer 0) "
+        f"= {bound:.4g}, max|logit| = {b.abs().max().item():.4g}, greedy "
+        f"tokens equal on every row: {same}")
+    if bound == 0.0:
+        raise AssertionError("the one-ulp nudge did not reach the logits")
+    if err > bound or not same:
+        raise AssertionError(f"backend parity failed: {err} > {bound} or "
+                             f"greedy differs")
+
+
+def device_busy(sched, mode: str) -> None:
+    """A short burst (4 requests of 20..32 prompt tokens, 6 tokens each:
+    2 prefill chunks a request, then a full slot pool decoding) under
+    ``torch.profiler``: the share of the wall time the card spends in
+    kernels, and the kernels that take it.  The profiler slows the host,
+    so its wall time is not the serve run's; the kernel times are the
+    card's.  The window is short because reading the trace back costs
+    far more than recording it."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import synthetic_workload
+    requests = synthetic_workload(4, sched.cfg.vocab_size, min_prompt=20,
+                                  max_prompt=32, max_new=6, seed=1)
+    torch.cuda.synchronize()
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: collections.Counter[str] = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] += evt.time_range.elapsed_us()
+    busy = sum(by_name.values()) / 1e6
+    if not by_name:
+        log(f"profile {mode}: the profiler saw no device time (not "
+            f"measured)")
+        return
+    top = ", ".join(
+        f"{name.replace('void ', '').replace('(anonymous namespace)::', '')[:40]}"
+        f" {us / 1e3:.1f} ms" for name, us in by_name.most_common(6))
+    log(f"profile {mode}: {sched.decode_steps - steps} decode steps + "
+        f"{sched.prefill_chunks - chunks} prefill chunks, wall "
+        f"{wall:.3f} s under the profiler, kernels {busy:.3f} s "
+        f"({100 * busy / wall:.1f} % busy); top: {top}")
+
+
+def serve_phases(smi: str) -> dict[str, int]:
+    """Phases 4-5; returns each kernel's launches on the main path."""
+    import gc
+    import torch
+    launches: dict[str, int] = {}
+    for mode in ("pum", "int8"):
+        res, counts = serve_run(mode, smi)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        backend_parity(res["scheduler"])
+        device_busy(res["scheduler"], mode)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+KERNELS = {
+    "bitslice_mvm_scaled": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/bitslice_mvm/csrc/bitslice_mvm.cu",
+        replaces="src/repro/kernels/bitslice_mvm/kernel.py:139"),
+    "bitslice_mvm": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/bitslice_mvm/csrc/bitslice_mvm.cu",
+        replaces="src/repro/kernels/bitslice_mvm/kernel.py:98"),
+    "paged_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/paged_attention/csrc/"
+               "paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:113"),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=["kernels"], default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the "
+              "card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    # -- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    gpu_name = torch.cuda.get_device_name(0)
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    dev = torch.device("cuda", 0)
+
+    # -- 2. build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"build: {len(logs)} kernel sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # -- 3. kernels
+    rows = check_mvm(dev, gpu_name)
+    rows["paged_attention"] = check_attention(dev, gpu_name)
+    if args.only == "kernels":
+        log(json.dumps({"kernels": rows}))
+        return 0
+
+    launches = serve_phases(smi)
+    out = []
+    for name, meta in KERNELS.items():
+        n = launches.get(name, 0)
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+        out.append({"name": name, **meta, "launches": n, **rows[name]})
+    log(json.dumps({"kernels": out}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": gpu_name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

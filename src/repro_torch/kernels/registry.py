@@ -1,0 +1,137 @@
+"""The kernel-backend registry: one switch for every hand-written kernel.
+
+  * :class:`KernelBackend` — ``torch`` (the plain PyTorch versions, the
+    oracle role XLA plays in the JAX package) and ``cuda`` (the
+    hand-written Hopper kernels under ``kernels/*/csrc``).
+  * :func:`use_backend` — a context manager installing an ambient
+    default plus per-kernel overrides (``use_backend("cuda",
+    paged_attention="torch")``); frames nest, inner frames win, and the
+    stack is thread-local.
+  * :func:`resolve_backend` — per call: an explicit argument, else the
+    ambient selection, else the tensor's device (``cuda`` for CUDA
+    tensors, ``torch`` for CPU tensors).  A CPU tensor always takes the
+    plain version; asking for ``cuda`` on one raises.  ``torch`` on a
+    CUDA tensor is taken only when selected explicitly (the kernel
+    comparisons in ``chip_smoke.py``).
+
+The registry also holds the launch counters: each wrapper adds one to
+its kernel's count where it launches the kernel, and nowhere else, so a
+run can show that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import enum
+import threading
+
+import torch
+
+
+class KernelBackend(enum.Enum):
+    TORCH = "torch"
+    CUDA = "cuda"
+
+    def __str__(self) -> str:
+        return self.value
+
+
+class KernelTileError(ValueError):
+    """A tensor the kernel cannot take (shape, type, layout, device)."""
+
+
+def coerce_backend(value: KernelBackend | str | None,
+                   ) -> KernelBackend | None:
+    """Accept the enum, its string value, or None (= unset)."""
+    if value is None or isinstance(value, KernelBackend):
+        return value
+    try:
+        return KernelBackend(str(value).lower())
+    except ValueError:
+        raise ValueError(
+            f"unknown kernel backend {value!r}; expected one of "
+            f"{[b.value for b in KernelBackend]}") from None
+
+
+_STATE = threading.local()
+
+
+def _stack() -> list[tuple[KernelBackend | None,
+                           dict[str, KernelBackend | None]]]:
+    st = getattr(_STATE, "stack", None)
+    if st is None:
+        st = _STATE.stack = []
+    return st
+
+
+def get_backend(kernel: str | None = None) -> KernelBackend | None:
+    """The ambient selection for ``kernel`` (innermost frame wins; a
+    frame's per-kernel override beats its default), or None."""
+    for default, overrides in reversed(_stack()):
+        if kernel is not None and kernel in overrides:
+            return overrides[kernel]
+        if default is not None:
+            return default
+    return None
+
+
+@contextlib.contextmanager
+def use_backend(backend: KernelBackend | str | None = None,
+                **per_kernel: KernelBackend | str | None):
+    """Install an ambient backend default and/or per-kernel overrides."""
+    frame = (coerce_backend(backend),
+             {k: coerce_backend(v) for k, v in per_kernel.items()})
+    st = _stack()
+    st.append(frame)
+    try:
+        yield
+    finally:
+        st.pop()
+
+
+def resolve_backend(tensor: torch.Tensor,
+                    backend: KernelBackend | str | None = None, *,
+                    kernel: str | None = None) -> KernelBackend:
+    """Explicit ``backend`` > ambient selection > the tensor's device."""
+    b = coerce_backend(backend)
+    if b is None:
+        b = get_backend(kernel)
+    if tensor.device.type != "cuda":
+        if b == KernelBackend.CUDA:
+            raise KernelTileError(
+                f"the cuda backend of {kernel or 'this kernel'} takes CUDA "
+                f"tensors, got one on {tensor.device}")
+        return KernelBackend.TORCH
+    return KernelBackend.CUDA if b is None else b
+
+
+# ---------------------------------------------------------------------------
+# Launch counters
+# ---------------------------------------------------------------------------
+
+LAUNCHES: collections.Counter[str] = collections.Counter()
+
+
+def count_launch(kernel: str) -> None:
+    LAUNCHES[kernel] += 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+# ---------------------------------------------------------------------------
+# Tiling policy: Hopper's, not the TPU's sublane floors
+# ---------------------------------------------------------------------------
+
+# bitslice_mvm (csrc/bitslice_mvm.cu tiles 16 rows x 32 columns x 256 K
+# per CTA): at most four planes, and N a multiple of 16 because each
+# thread stages 16 contiguous bytes of a plane row with one vector load.
+MVM_MAX_SLICES = 4
+MVM_VEC_N = 16
+
+# paged_attention: one warp per (query, group-head) pair, 8 warps a CTA;
+# each warp keeps its row's T f32 scores in shared memory, so T is bounded
+# by the 227 KB a CTA may use.
+ATTN_WARPS = 8
+ATTN_MAX_SMEM = 227 * 1024

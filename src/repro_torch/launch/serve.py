@@ -1,0 +1,113 @@
+"""Serving launcher of the port: the continuous-batching scheduler over
+the paged KV pool, on the card by default.
+
+``python -m repro_torch.launch.serve --arch qwen2.5-3b --batch-slots 4
+--requests 6 --min-prompt-len 20 --prompt-len 64 --gen 16 --pum-mode pum
+--kv-block-size 16 --chunked-prefill``
+
+Weights are random, drawn on the device from ``--seed``; ``--reduced``
+serves the arch's miniature (the CPU tests do, with ``--device cpu``).
+Prints throughput and decode milliseconds per step on lines of their
+own, beside the device it ran on.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.config import PUMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.serve import ContinuousBatchingScheduler, synthetic_workload
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    choices=configs.all_arch_ids())
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the arch's same-family miniature")
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="trace length (default: 4x slots)")
+    ap.add_argument("--min-prompt-len", type=int, default=1)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="longest prompt of the trace")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="tokens generated per request")
+    ap.add_argument("--pum-mode", default="pum",
+                    choices=["int8", "pum"])
+    ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--num-kv-blocks", type=int, default=0,
+                    help="pool size (default: slots * ceil(max_len / "
+                         "block))")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="stream prompts in block-size chunks between "
+                         "decode steps")
+    ap.add_argument("--kernel-backend", default="auto",
+                    choices=["auto", "cuda", "torch"],
+                    help="auto: the CUDA kernels on the card, the plain "
+                         "PyTorch versions on the CPU")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the trace")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    """Serve a burst trace; returns the scheduler, its completions and
+    the measured numbers (for ``chip_smoke.py``)."""
+    args = build_parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = configs.get_reduced(args.arch) if args.reduced \
+        else configs.get(args.arch)
+    cfg = cfg.replace(pum=PUMConfig(mode=args.pum_mode))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                    cfg)
+    n = args.requests or 4 * args.batch_slots
+    max_len = args.prompt_len + args.gen + 1
+    sched = ContinuousBatchingScheduler(
+        cfg, params, num_slots=args.batch_slots, max_len=max_len,
+        kv_block_size=args.kv_block_size, num_kv_blocks=args.num_kv_blocks,
+        chunked_prefill=args.chunked_prefill,
+        kernel_backend=None if args.kernel_backend == "auto"
+        else args.kernel_backend, device=dev)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    reqs = synthetic_workload(n, cfg.vocab_size,
+                              min_prompt=args.min_prompt_len,
+                              max_prompt=args.prompt_len,
+                              max_new=args.gen, seed=args.seed)
+    t0 = time.perf_counter()
+    out = sched.run(reqs)
+    wall_s = time.perf_counter() - t0
+    toks = sum(len(c.tokens) for c in out.values())
+    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else "cpu")
+    decode_ms = 1e3 * sched.decode_seconds / max(1, sched.decode_steps)
+    print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+          f"mode={args.pum_mode} slots={args.batch_slots} "
+          f"kv=paged(block={args.kv_block_size}, "
+          f"blocks={sched.num_kv_blocks}"
+          f"{', chunked' if args.chunked_prefill else ''}) "
+          f"device={dev_name} setup_s={setup_s:.2f}")
+    print(f"served {len(out)} requests, {toks} tokens in {wall_s:.3f} s: "
+          f"{sched.decode_steps} decode steps, {sched.prefill_chunks} "
+          f"prefill chunks")
+    print(f"throughput_tok_per_s={toks / wall_s:.2f}")
+    print(f"decode_ms_per_step={decode_ms:.3f}")
+    return {"scheduler": sched, "requests": reqs, "completions": out,
+            "tokens": toks, "wall_s": wall_s, "decode_ms": decode_ms,
+            "setup_s": setup_s}
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

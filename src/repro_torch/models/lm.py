@@ -1,0 +1,111 @@
+"""The assembled language model: embeddings -> block stack -> head.
+
+Dense decoders only in this slice (Qwen2.5-3B and the small test
+configs).  Params are per layer — ``params["blocks"][l]`` — and a Python
+loop over layers takes the place of the JAX package's ``scan`` over
+stacked groups; decode states are per layer too (``states[l]``), and
+their KV storage is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import prepack
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers, transformer
+
+Params = dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device = "cuda") -> Params:
+    """Random weights drawn on ``device`` from ``generator`` (which must
+    live on that device) with the JAX package's distributions."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+    params: Params = {
+        "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                   dev),
+        "final_norm": layers.make_norm(cfg, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = torch.randn(
+            (cfg.d_model, layers.padded_vocab(cfg.vocab_size)),
+            generator=generator, device=dev) * 0.02
+    params["blocks"] = [transformer.init_block(generator, cfg, j, dev)
+                        for j in range(cfg.num_layers)]
+    return params
+
+
+def prepack_for_serving(params: Params, cfg: ModelConfig) -> Params:
+    """Pack every linear weight once for inference (crossbar
+    programming); a no-op for bf16.  The embedding stays float."""
+    return prepack.prepack_params(params, cfg.pum)
+
+
+def init_state(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> list[Params]:
+    """Per-layer contiguous KV caches [batch, max_len, KV, hd] (bf16)."""
+    dev = resolve_device(device)
+    return [attention.make_cache(cfg, batch, max_len, device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+def init_paged_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                     num_blocks: int, block_size: int,
+                     device: str | torch.device = "cuda") -> list[Params]:
+    """Per-layer KV pools of ``num_blocks + 1`` blocks (block 0 is the
+    reserved trash block — ``serve.kv_pool``).  ``batch``/``max_len``
+    size recurrent rows in the JAX package; the dense family has none."""
+    del batch, max_len
+    dev = resolve_device(device)
+    return [attention.make_paged_cache(cfg, num_blocks + 1, block_size,
+                                       device=dev)
+            for _ in range(cfg.num_layers)]
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            states: list[Params] | None = None,
+            cache_index: torch.Tensor | int | None = None,
+            last_only: bool = False,
+            block_table: torch.Tensor | None = None,
+            kv_len: int | None = None,
+            write_table: torch.Tensor | None = None,
+            ) -> tuple[torch.Tensor, list[Params] | None]:
+    """tokens: [B, S] int -> (logits [B, S or 1, V_padded] f32, states).
+
+    Modes: train/score (states None); prefill (contiguous states,
+    cache_index 0); decode (cache_index a scalar or [B] per-slot
+    depths); paged (states from :func:`init_paged_state`, per-row
+    ``block_table`` [B, W] and the engine window ``kv_len``)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    h = params["embed"][tokens].to(
+        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    if cache_index is not None:
+        cache_index = torch.as_tensor(cache_index, dtype=torch.int32,
+                                      device=dev)
+        offs = torch.arange(s, dtype=torch.int32, device=dev)
+        positions = (cache_index[:, None] + offs[None, :]
+                     if cache_index.ndim == 1 else cache_index + offs)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=dev)
+
+    for j, blk in enumerate(params["blocks"]):
+        st = states[j] if states is not None else None
+        h, _ = transformer.apply_block(
+            blk, h, cfg, j, positions=positions, state=st,
+            cache_index=cache_index, block_table=block_table,
+            kv_len=kv_len, write_table=write_table)
+
+    h = layers.norm_apply(params["final_norm"], h, cfg)
+    if last_only:
+        h = h[:, -1:]
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    logits = torch.matmul(h.to(torch.float32), head.to(torch.float32))
+    return logits, states

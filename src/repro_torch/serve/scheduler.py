@@ -1,0 +1,440 @@
+"""Continuous-batching serve scheduler over the paged KV pool.
+
+A fixed pool of ``num_slots`` decode slots shares one prepacked
+parameter set and one paged KV pool per layer (``serve.kv_pool``).  Each
+scheduler iteration (:meth:`ContinuousBatchingScheduler.tick`):
+
+  * feeds every mid-prefill slot one chunk of its prompt (``kv_block_size``
+    tokens with ``chunked_prefill``, else the whole prompt) through a
+    batch-1 step that writes K/V straight into the pool through the
+    slot's block-table row; the slot whose last chunk lands samples its
+    first token and joins decode;
+  * runs ONE slot-wise decode step over all slots: a per-slot
+    ``cache_index`` vector, an active mask, and a block table masked so
+    that rows not decoding write to the trash block.
+
+Admission claims a free slot and the request's blocks up front (FIFO; a
+request the pool cannot fund yet waits), retirement releases them.
+
+Oracle equivalence: each request's tokens equal those of the request
+run alone through ``ServeEngine.generate_loop`` — activation scales are
+per input row and the gathered paged view is cropped to the engine
+window, so a row's numerics never depend on its co-tenants.
+
+This slice serves greedy requests on the dense family.  The contiguous
+scheduler, prefix caching, speculative decoding, tensor parallelism and
+fault-injection hooks of the JAX package are not ported yet; their
+arguments raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import lm
+from repro_torch.serve import kv_pool
+from repro_torch.serve.engine import (RequestTooLarge, ServeEngine,
+                                      make_decode_step, sample_token)
+
+
+class InvalidRequest(ValueError):
+    """A malformed request (empty prompt, max_tokens < 1, duplicate
+    rid, or an option this slice does not serve)."""
+
+
+class PoolExhausted(RuntimeError):
+    """No slot or no KV blocks can fund the request right now."""
+
+
+class SchedulerStalled(RuntimeError):
+    """The serve loop exceeded its dispatch budget without draining."""
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request.  ``arrival`` is in scheduler steps;
+    ``eos_id < 0`` disables EOS; ``max_tokens`` counts every generated
+    token, the EOS included."""
+    prompt: Sequence[int]
+    max_tokens: int
+    temperature: float = 0.0
+    eos_id: int = -1
+    arrival: int = 0
+    rid: int | None = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    prompt: list[int]
+    tokens: list[int]                  # generated tokens, EOS included
+    finish_reason: str                 # "eos" | "length"
+    admitted_step: int
+    finished_step: int
+
+
+@dataclasses.dataclass
+class TickResult:
+    """What one iteration produced: streaming events ``(rid, index,
+    token)``, retired completions, dispatches run, whether decode ran."""
+    events: list[tuple[int, int, int]]
+    completions: dict[int, Completion]
+    dispatches: int
+    decoded: bool
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    req: Request
+    prompt: list[int]
+    pos: int = 0                       # prompt tokens already fed
+
+
+def _mask_block_table(block_table: torch.Tensor, active: torch.Tensor
+                      ) -> torch.Tensor:
+    """Route every non-decoding row's KV writes to the trash block."""
+    return block_table * active.to(block_table.dtype)[:, None]
+
+
+def make_slot_step(cfg: ModelConfig, kv_len: int):
+    """The one-dispatch-per-token core over the paged pool.
+
+    (params, states, cur_tok [B,1], cache_index [B], active [B] bool,
+     eos [B], gen [B], max_toks [B], block_table [B,W])
+      -> (states, tok [B], cache_index', active', gen', done [B])
+
+    Every slot runs; ``active`` masks rows out of the counters and, via
+    the masked block table, out of the pool.  Greedy sampling."""
+    decode = make_decode_step(cfg, kv_len=kv_len)
+
+    def slot_step(params, states, cur_tok, cache_index, active, eos, gen,
+                  max_toks, block_table):
+        block_table = _mask_block_table(block_table, active)
+        logits, states = decode(params, states, cur_tok, cache_index,
+                                block_table=block_table,
+                                write_table=block_table)
+        tok = sample_token(logits)[:, 0]
+        gen = gen + active.to(gen.dtype)
+        done = active & ((tok == eos) | (gen >= max_toks))
+        cache_index = cache_index + active.to(cache_index.dtype)
+        active = active & ~done
+        return states, tok, cache_index, active, gen, done
+
+    return slot_step
+
+
+class ContinuousBatchingScheduler:
+    """Continuous batching over a fixed pool of decode slots, paged KV.
+
+    ``kv_block_size`` tokens per KV block; ``num_kv_blocks`` sizes the
+    pool (default: ``num_slots * ceil(max_len / kv_block_size)``);
+    ``chunked_prefill`` streams prompts in block-size chunks between
+    decode steps.  ``kernel_backend`` (``"cuda"``/``"torch"``/None) is
+    ambient for every step; None selects by device.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
+                 max_len: int = 128, prepack: bool | None = None,
+                 kv_block_size: int = 16, num_kv_blocks: int = 0,
+                 chunked_prefill: bool = False, kernel_backend=None,
+                 device: str | torch.device = "cuda",
+                 prefix_cache: bool = False, speculate_k: int = 0,
+                 mesh=None):
+        if prefix_cache or speculate_k or mesh is not None:
+            raise NotImplementedError(
+                "prefix caching, speculative decoding and tensor-parallel "
+                "serving are not ported yet")
+        if kv_block_size <= 0:
+            raise NotImplementedError(
+                "the contiguous-window scheduler is not ported yet; set "
+                "kv_block_size > 0 for the paged pool")
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        self.engine = ServeEngine(cfg, params, max_len=max_len,
+                                  prepack=prepack,
+                                  kernel_backend=kernel_backend,
+                                  device=device)
+        self.cfg = cfg
+        self.params = self.engine.params
+        self.device = self.engine.device
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.block_size = kv_block_size
+        self.chunked_prefill = chunked_prefill
+        self.table_width = kv_pool.table_width(max_len, kv_block_size)
+        self.num_kv_blocks = num_kv_blocks or num_slots * self.table_width
+        self._step = make_slot_step(cfg, kv_len=max_len)
+        self._reset()
+
+    def _reset(self) -> None:
+        b = self.num_slots
+        self.states = lm.init_paged_state(
+            self.cfg, b, self.max_len, num_blocks=self.num_kv_blocks,
+            block_size=self.block_size, device=self.device)
+        self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
+        self._block_table = np.zeros((b, self.table_width), np.int32)
+        self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
+        self._prefills: dict[int, _PrefillJob] = {}
+        self._cur_tok = np.zeros((b, 1), np.int32)
+        self._cache_index = np.zeros((b,), np.int32)
+        self._active = np.zeros((b,), bool)
+        self._eos = np.full((b,), -1, np.int32)
+        self._gen = np.zeros((b,), np.int32)
+        self._max_toks = np.ones((b,), np.int32)
+        self._slot_req: list[Request | None] = [None] * b
+        self._slot_toks: list[list[int]] = [[] for _ in range(b)]
+        self._slot_admitted = np.zeros((b,), np.int64)
+        self._events: list[tuple[int, int, int]] = []
+        # lifetime dispatch counters and the host time spent in decode
+        # dispatches (each ends in a device-to-host copy, which waits
+        # for the step to finish)
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.decode_seconds = 0.0
+
+    # -- admission ---------------------------------------------------------
+
+    def _blocks_for(self, req: Request) -> int:
+        return kv_pool.blocks_needed(len(req.prompt), req.max_tokens,
+                                     self.block_size)
+
+    def validate_request(self, req: Request) -> None:
+        if len(req.prompt) < 1:
+            raise InvalidRequest(f"request {req.rid}: empty prompt")
+        if req.max_tokens < 1:
+            raise InvalidRequest(f"request {req.rid}: max_tokens must be "
+                                 f">= 1, got {req.max_tokens}")
+        if req.temperature > 0:
+            raise NotImplementedError(
+                f"request {req.rid}: temperature > 0 is not ported yet")
+        self.engine.check_window(len(req.prompt), req.max_tokens)
+        need = self._blocks_for(req)
+        if need > self.num_kv_blocks:
+            raise RequestTooLarge(
+                f"request {req.rid}: needs {need} KV blocks, the pool has "
+                f"{self.num_kv_blocks}")
+
+    def _free_slot(self) -> int | None:
+        for slot in range(self.num_slots):
+            if not self._active[slot] and self._slot_req[slot] is None:
+                return slot
+        return None
+
+    def can_fund(self, req: Request) -> bool:
+        return (self._free_slot() is not None
+                and self._alloc.can_alloc(self._blocks_for(req)))
+
+    def start_request(self, req: Request, step: int = 0) -> None:
+        """Admit one request: claim a free slot and its KV blocks; its
+        prompt is fed by the following ticks."""
+        self.validate_request(req)
+        slot = self._free_slot()
+        if slot is None:
+            raise PoolExhausted(f"request {req.rid}: all {self.num_slots} "
+                                f"decode slots are occupied")
+        ids = self._alloc.alloc(self._blocks_for(req))
+        if ids is None:
+            raise PoolExhausted(
+                f"request {req.rid}: needs {self._blocks_for(req)} KV "
+                f"blocks, the pool has {self._alloc.free_blocks} free")
+        self._slot_blocks[slot] = ids
+        self._block_table[slot, :] = 0
+        self._block_table[slot, :len(ids)] = ids
+        prompt = [int(t) for t in req.prompt]
+        self._prefills[slot] = _PrefillJob(req=req, prompt=prompt)
+        self._slot_req[slot] = req
+        self._slot_toks[slot] = []
+        self._slot_admitted[slot] = step
+
+    def _retire(self, slot: int) -> None:
+        self._alloc.release(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self._block_table[slot, :] = 0
+        self._slot_req[slot] = None
+        self._slot_toks[slot] = []
+
+    # -- the steps ---------------------------------------------------------
+
+    def _chunk_prefill(self, tokens: torch.Tensor, start: int, slot: int
+                       ) -> torch.Tensor:
+        """Run one chunk of a slot's prompt against the shared pools."""
+        table_row = torch.as_tensor(self._block_table[slot:slot + 1],
+                                    device=self.device)
+        one = kv_pool.slot_states_view(self.cfg, self.states, slot)
+        with self.engine.backend_ctx():
+            logits, one = lm.forward(
+                self.params, tokens, self.cfg, states=one,
+                cache_index=torch.tensor([start], dtype=torch.int32,
+                                         device=self.device),
+                block_table=table_row, last_only=True, kv_len=self.max_len,
+                write_table=table_row)
+        self.states = kv_pool.slot_states_merge(self.cfg, self.states, one,
+                                                slot)
+        return logits
+
+    def _feed_prefills(self, step: int, out: dict[int, Completion]) -> int:
+        dispatches = 0
+        for slot in sorted(self._prefills):
+            pf = self._prefills[slot]
+            chunk = self.block_size if self.chunked_prefill \
+                else len(pf.prompt)
+            c = min(chunk, len(pf.prompt) - pf.pos)
+            toks = torch.tensor([pf.prompt[pf.pos:pf.pos + c]],
+                                dtype=torch.int32, device=self.device)
+            logits = self._chunk_prefill(toks, pf.pos, slot)
+            pf.pos += c
+            dispatches += 1
+            self.prefill_chunks += 1
+            if pf.pos < len(pf.prompt):
+                continue
+            del self._prefills[slot]
+            req = pf.req
+            tok0 = int(sample_token(logits)[0, 0])
+            if tok0 == req.eos_id or req.max_tokens == 1:
+                reason = "eos" if tok0 == req.eos_id else "length"
+                out[req.rid] = Completion(
+                    req.rid, pf.prompt, [tok0], reason,
+                    int(self._slot_admitted[slot]), step)
+                self._retire(slot)
+                continue
+            self._cur_tok[slot, 0] = tok0
+            self._cache_index[slot] = len(pf.prompt)
+            self._active[slot] = True
+            self._eos[slot] = req.eos_id if req.eos_id >= 0 else -1
+            self._gen[slot] = 1
+            self._max_toks[slot] = req.max_tokens
+            self._slot_toks[slot] = [tok0]
+            self._events.append((req.rid, 0, tok0))
+        return dispatches
+
+    @torch.inference_mode()
+    def tick(self, step: int = 0) -> TickResult:
+        """One iteration: a chunk for every mid-prefill slot, then the
+        slot-wise decode step if any slot is live."""
+        out: dict[int, Completion] = {}
+        dispatches = self._feed_prefills(step, out)
+        decoded = False
+        if self._active.any():
+            was_active = self._active.copy()
+            dev = self.device
+            t0 = time.perf_counter()
+            with self.engine.backend_ctx():
+                (self.states, tok, cache_index, active, gen,
+                 done) = self._step(
+                    self.params, self.states,
+                    torch.as_tensor(self._cur_tok, device=dev),
+                    torch.as_tensor(self._cache_index, device=dev),
+                    torch.as_tensor(self._active, device=dev),
+                    torch.as_tensor(self._eos, device=dev),
+                    torch.as_tensor(self._gen, device=dev),
+                    torch.as_tensor(self._max_toks, device=dev),
+                    torch.as_tensor(self._block_table, device=dev))
+            tok = tok.cpu().numpy()
+            self.decode_seconds += time.perf_counter() - t0
+            self.decode_steps += 1
+            self._cur_tok = tok[:, None].astype(np.int32)
+            self._cache_index = cache_index.cpu().numpy()
+            self._active = active.cpu().numpy()
+            self._gen = gen.cpu().numpy()
+            done = done.cpu().numpy()
+            for slot in np.nonzero(was_active)[0]:
+                req = self._slot_req[slot]
+                self._slot_toks[slot].append(int(tok[slot]))
+                self._events.append((req.rid,
+                                     len(self._slot_toks[slot]) - 1,
+                                     int(tok[slot])))
+                if done[slot]:
+                    reason = ("eos" if int(tok[slot]) == req.eos_id
+                              else "length")
+                    out[req.rid] = Completion(
+                        req.rid, [int(t) for t in req.prompt],
+                        self._slot_toks[slot], reason,
+                        int(self._slot_admitted[slot]), step)
+                    self._retire(slot)
+            decoded = True
+            dispatches += 1
+        events, self._events = self._events, []
+        return TickResult(events, out, dispatches, decoded)
+
+    def run(self, requests: Sequence[Request], max_steps: int = 100_000
+            ) -> dict[int, Completion]:
+        """Serve a trace to completion, admitting FIFO in arrival order
+        as slots and blocks free up.  Returns ``{rid: Completion}``."""
+        taken = {r.rid for r in requests if r.rid is not None}
+        if len(taken) != sum(r.rid is not None for r in requests):
+            raise InvalidRequest("duplicate request rids")
+        reqs, next_rid = [], 0
+        for r in requests:
+            if r.rid is None:
+                while next_rid in taken:
+                    next_rid += 1
+                r = dataclasses.replace(r, rid=next_rid)
+                taken.add(next_rid)
+            reqs.append(r)
+        for r in reqs:
+            self.validate_request(r)
+        pending = deque(sorted(reqs, key=lambda r: r.arrival))
+        ready: deque = deque()
+        out: dict[int, Completion] = {}
+        step = 0
+        work = 0
+        while pending or ready or self._prefills or self._active.any():
+            if work > max_steps:
+                raise SchedulerStalled(
+                    f"scheduler exceeded max_steps={max_steps}")
+            while pending and pending[0].arrival <= step:
+                ready.append(pending.popleft())
+            while ready and self.can_fund(ready[0]):
+                self.start_request(ready.popleft(), step)
+            res = self.tick(step)
+            work += res.dispatches
+            out.update(res.completions)
+            if not res.decoded:
+                if self._prefills:
+                    step += 1
+                    continue
+                if pending:
+                    step = max(step + 1, pending[0].arrival)
+                    continue
+                break
+            step += 1
+        return out
+
+
+def synthetic_workload(n_requests: int, vocab_size: int, *,
+                       min_prompt: int = 1, max_prompt: int = 8,
+                       max_new: int = 16, mean_interarrival: float = 0.0,
+                       seed: int = 0) -> list[Request]:
+    """A seeded trace of greedy requests: prompt lengths uniform in
+    ``[min_prompt, max_prompt]``, ``max_new`` tokens each, no EOS, and
+    exponential inter-arrival gaps in scheduler steps (0 = a burst)."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    reqs = []
+    for i in range(n_requests):
+        if mean_interarrival > 0:
+            t += rng.exponential(mean_interarrival)
+        plen = int(rng.integers(min_prompt, max_prompt + 1))
+        reqs.append(Request(
+            prompt=rng.integers(0, vocab_size, size=plen).tolist(),
+            max_tokens=max_new, arrival=int(t), rid=i))
+    return reqs
+
+
+def oracle_completion(engine: ServeEngine, req: Request) -> list[int]:
+    """``req`` run alone through the per-token loop, truncated at its
+    EOS (inclusive): what the scheduler must reproduce exactly."""
+    prompt = torch.tensor([list(req.prompt)], dtype=torch.int32,
+                          device=engine.device)
+    full = engine.generate_loop(prompt, req.max_tokens,
+                                temperature=req.temperature)
+    gen = [int(t) for t in full[0, prompt.shape[1]:].tolist()]
+    if req.eos_id >= 0 and req.eos_id in gen:
+        gen = gen[:gen.index(req.eos_id) + 1]
+    return gen

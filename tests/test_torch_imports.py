@@ -1,0 +1,86 @@
+"""The port stands alone and never runs on the CPU unasked:
+
+  * no file of ``src/repro_torch`` nor ``chip_smoke.py`` imports JAX or
+    the JAX package (an AST scan, so comments and strings do not count);
+  * every entry point called without ``device`` on a machine with no
+    CUDA raises instead of running on the CPU;
+  * the serving CLI runs end to end when the CPU is asked for.
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.config import PUMConfig
+from repro_torch.launch import serve
+from repro_torch.models import lm
+from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value,
+                                                                str):
+                    roots.add(arg.value.split(".")[0])
+    return roots
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        bad = _imported_roots(f) & set(FORBIDDEN)
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_the_cpu_unasked(no_cuda):
+    cfg = configs.get_reduced("qwen2.5-3b").replace(
+        pum=PUMConfig(mode="int8"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_params(cfg, torch.Generator())
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatchingScheduler(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("mode", ["pum", "int8"])
+def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
+    res = serve.main(["--reduced", "--device", "cpu", "--pum-mode", mode,
+                      "--batch-slots", "2", "--requests", "3",
+                      "--min-prompt-len", "3", "--prompt-len", "9",
+                      "--gen", "4", "--kv-block-size", "4",
+                      "--chunked-prefill"])
+    out = capsys.readouterr().out
+    assert "throughput_tok_per_s=" in out and "decode_ms_per_step=" in out
+    assert "device=cpu" in out
+    assert len(res["completions"]) == 3
+    assert all(len(c.tokens) == 4 for c in res["completions"].values())
+    sched = res["scheduler"]
+    # every prompt of 3..9 tokens streams in ceil(len / 4) chunks
+    assert sched.prefill_chunks == sum(-(-len(r.prompt) // 4)
+                                       for r in res["requests"])

@@ -1,0 +1,189 @@
+"""The port's continuous-batching scheduler against the JAX package's
+(``kernel_backend="xla"``): dense model x {pum, int8}, paged KV blocks
+of 4, chunked prefill, three staggered greedy requests.
+
+  * teacher forcing: JAX's greedy tokens fed through the port's prefill
+    and decode steps give per-step logits within ``LOGIT_TOL`` of JAX's;
+  * the port's scheduler emits JAX's tokens wherever JAX's top-2 logit
+    margin exceeds 10x that tolerance (past a near-tie the two may
+    legitimately diverge);
+  * inside the port, the scheduler's tokens equal its own solo oracle
+    (``ServeEngine.generate_loop``) bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import to_numpy
+from repro.config import PUMConfig as JPUM, small_test_config as jsmall
+from repro.models import lm as jlm
+from repro.serve import ContinuousBatchingScheduler as JSched
+from repro.serve import Request as JRequest
+from repro_torch import bridge
+from repro_torch.config import PUMConfig as TPUM, small_test_config as tsmall
+from repro_torch.kernels import registry
+from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                               oracle_completion)
+
+# f32 logits: integer contractions are exact on equal inputs, the rest
+# differs by f32 summation order (~1e-7 at this size)
+LOGIT_TOL = 1e-4
+TRACE = [([3, 1, 4, 1, 5], 8, 0), ([9, 2, 6, 5, 3, 5, 8], 6, 1),
+         ([7, 7], 7, 2)]
+KW = dict(dtype="float32", qkv_bias=True, tie_embeddings=True)
+SCHED = dict(num_slots=2, max_len=24, kv_block_size=4, chunked_prefill=True)
+
+
+@pytest.fixture(scope="module", params=["pum", "int8"])
+def ref(request):
+    """JAX's scheduler run and per-step solo logits, built once per
+    mode; and the port's params carried across by the bridge."""
+    mode = request.param
+    jcfg = jsmall(pum=JPUM(mode=mode), **KW)
+    raw = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    js = JSched(jcfg, raw, kernel_backend="xla", **SCHED)
+    out = js.run([JRequest(p, m, arrival=a) for p, m, a in TRACE])
+    tokens = {rid: out[rid].tokens for rid in out}
+    logits = {}
+    eng = js.engine
+    for rid, (prompt, _, _) in enumerate(TRACE):
+        states, lg, _ = eng.prefill(jnp.asarray([prompt], jnp.int32))
+        steps = [np.asarray(lg)[0, -1]]
+        for i, tok in enumerate(tokens[rid][:-1]):
+            with eng.mesh_ctx():
+                lg, states = eng._decode(eng.params, states,
+                                         jnp.asarray([[tok]], jnp.int32),
+                                         jnp.int32(len(prompt) + i))
+            steps.append(np.asarray(lg)[0, -1])
+        logits[rid] = np.stack(steps)
+    tcfg = tsmall(pum=TPUM(mode=mode), **KW)
+    params = bridge.params_from_numpy(
+        to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
+    return dict(mode=mode, tcfg=tcfg, params=params, tokens=tokens,
+                logits=logits)
+
+
+def _margin(row):
+    top2 = np.sort(row)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def test_teacher_forced_logits_match(ref):
+    sched = ContinuousBatchingScheduler(ref["tcfg"], ref["params"],
+                                        device="cpu", **SCHED)
+    eng = sched.engine
+    for rid, (prompt, _, _) in enumerate(TRACE):
+        states, lg = eng.prefill(torch.tensor([prompt], dtype=torch.int32))
+        steps = [lg[0, -1]]
+        for i, tok in enumerate(ref["tokens"][rid][:-1]):
+            lg, states = eng.decode(states,
+                                    torch.tensor([[tok]], dtype=torch.int32),
+                                    len(prompt) + i)
+            steps.append(lg[0, -1])
+        got = torch.stack(steps).numpy()
+        want = ref["logits"][rid]
+        np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=0)
+        for i, row in enumerate(want):
+            if _margin(row) > 10 * LOGIT_TOL:
+                assert int(got[i].argmax()) == ref["tokens"][rid][i]
+
+
+def test_scheduler_tokens_match_jax_and_own_oracle(ref):
+    sched = ContinuousBatchingScheduler(ref["tcfg"], ref["params"],
+                                        device="cpu", **SCHED)
+    registry.reset_launches()
+    out = sched.run([Request(p, m, arrival=a) for p, m, a in TRACE])
+    assert sum(registry.LAUNCHES.values()) == 0     # plain versions on CPU
+    assert sched.prefill_chunks == sum(-(-len(p) // 4) for p, _, _ in TRACE)
+    for rid, (prompt, max_tokens, _) in enumerate(TRACE):
+        got = out[rid].tokens
+        assert len(got) == max_tokens and out[rid].finish_reason == "length"
+        # port-internal contract: scheduler == solo oracle, bit for bit
+        assert got == oracle_completion(sched.engine,
+                                        Request(prompt, max_tokens))
+        # cross-framework: equal while JAX's choice is not a near-tie
+        for i, want in enumerate(ref["tokens"][rid]):
+            if _margin(ref["logits"][rid][i]) <= 10 * LOGIT_TOL:
+                break
+            assert got[i] == want, (rid, i, got, ref["tokens"][rid])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_allocator_matches_jax(seed):
+    """The same alloc / acquire / release sequence through both
+    allocators: the same ids in the same FIFO order, the same refcounts,
+    the same refusals and the same typed errors."""
+    from repro.serve import kv_pool as jpool
+    from repro_torch.serve import kv_pool as tpool
+    rng = np.random.default_rng(seed)
+    ja, ta = jpool.BlockAllocator(12), tpool.BlockAllocator(12)
+    live: list[int] = []
+    for _ in range(60):
+        op = rng.integers(0, 4)
+        if op == 0:
+            n = int(rng.integers(0, 6))
+            got, want = ta.alloc(n), ja.alloc(n)
+            assert got == want
+            live += got or []
+        elif op == 1 and live:
+            ids = [int(rng.choice(live))]
+            ja.acquire(ids), ta.acquire(ids)
+            live += ids
+        elif op == 2 and live:
+            i = int(rng.integers(0, len(live)))
+            ids = [live.pop(i)]
+            ja.release(ids), ta.release(ids)
+        else:
+            bad = int(rng.choice([0, 13, 5]))
+            if bad in live:
+                continue
+            with pytest.raises(ValueError) as je:
+                ja.release([bad])
+            with pytest.raises(ValueError) as te:
+                ta.release([bad])
+            assert type(te.value).__name__ == type(je.value).__name__
+        assert ta.free_blocks == ja.free_blocks
+        assert ta.live_blocks == ja.live_blocks
+        assert [ta.refcount(i) for i in range(1, 13)] == \
+            [ja.refcount(i) for i in range(1, 13)]
+    assert tpool.blocks_needed(9, 4, 4) == jpool.blocks_needed(9, 4, 4) == 3
+    assert tpool.table_width(24, 4) == jpool.table_width(24, 4) == 6
+
+
+@pytest.mark.parametrize("block,chunked", [(1, True), (4, False),
+                                           (16, True)])
+def test_port_scheduler_equals_own_oracle(ref, block, chunked):
+    """Inside the port, across block sizes and chunked / monolithic
+    prefill: every request's tokens equal its solo ``generate_loop``
+    run (contiguous cache) bit for bit, so paged == contiguous too."""
+    sched = ContinuousBatchingScheduler(
+        ref["tcfg"], ref["params"], device="cpu", num_slots=2, max_len=24,
+        kv_block_size=block, chunked_prefill=chunked)
+    trace = TRACE + [([11, 12, 13], 5, 4)]
+    out = sched.run([Request(p, m, arrival=a) for p, m, a in trace])
+    for rid, (prompt, max_tokens, _) in enumerate(trace):
+        assert out[rid].tokens == oracle_completion(
+            sched.engine, Request(prompt, max_tokens))
+    assert sched._alloc.free_blocks == sched.num_kv_blocks    # no leaks
+
+
+def test_port_scheduler_eos_frees_slot(ref):
+    """A request stopped by its EOS token retires early and hands its
+    slot and blocks to the queued request; both match the oracle."""
+    sched = ContinuousBatchingScheduler(ref["tcfg"], ref["params"],
+                                        device="cpu", num_slots=1,
+                                        max_len=24, kv_block_size=4,
+                                        chunked_prefill=True)
+    prompt, max_tokens, _ = TRACE[0]
+    solo = oracle_completion(sched.engine, Request(prompt, max_tokens))
+    eos = next((t for t in solo[1:-1] if t != solo[0]), None)
+    if eos is None:
+        pytest.skip("greedy rollout is constant; no mid-stream stop")
+    reqs = [Request(prompt, max_tokens, eos_id=eos), Request([2, 7], 5)]
+    out = sched.run(reqs)
+    assert out[0].finish_reason == "eos"
+    assert out[0].tokens == solo[:solo.index(eos) + 1]
+    assert out[1].tokens == oracle_completion(sched.engine, reqs[1])
+    assert out[1].admitted_step >= out[0].finished_step
