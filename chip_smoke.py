@@ -10,10 +10,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build   — compiles every ``src/repro_torch/**/csrc/*.cu`` for sm_90a,
    one ``nvcc`` per source, all started together.
 3. kernels — holds each hand-written kernel against its plain PyTorch
-   version at the main path's shapes (bitslice MVM bit for bit, paged
-   attention within the stated tolerance and its pools bit for bit)
-   and times kernel, plain version and one PyTorch library call that
-   computes the same function, beside the card's least time (bound).
+   version at the main paths' shapes (bitslice MVM and GF(2) MVM bit
+   for bit, paged attention within the stated tolerance and its pools
+   bit for bit) and times kernel, plain version and one PyTorch library
+   call that computes the same function, beside the card's least time
+   (bound).
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -22,7 +23,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode step of the same model on the ``cuda`` and the ``torch``
    backends and compares their logits.
 5. serve int8 — the same run with ``int8`` weights.
-6. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. aes — ``repro_torch.launch.aes.main`` at 2^24 blocks (256 MiB of
+   plaintext) for AES-128, -192 and -256: the bulk cipher through K4,
+   its ciphertext against the numpy oracle on 65 536 strided blocks,
+   decrypt(encrypt(x)) == x on every block, exactly Nr (Nr - 1) K4
+   launches per encrypt (decrypt) call, the gate-accurate DCE path on
+   256 blocks equal to the bulk ciphertext, the FIPS-197 vectors
+   through every path on the card, and the card's busy share over one
+   bulk encryption under the profiler.
+7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change).
 """
@@ -93,6 +102,24 @@ def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Per-call device time of ``fn`` between CUDA events, after one
+    warm-up call: for calls of milliseconds on inputs far larger than
+    the L2 cache, where launch time does not matter and a graph of many
+    calls would hold their outputs at once."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 class Rotating:
@@ -296,6 +323,63 @@ def check_attention(dev, gpu_name: str) -> dict:
     return row
 
 
+GF2_SHAPES = [(128, 128), (200, 129), (64, 32), (512, 48), (1000, 129)]
+GF2_ROWS = [1, 7, 130, 4096]
+AES_BLOCKS = 1 << 24
+GF2_PLAIN_CHUNK = 1 << 22        # rows per plain call in the big check
+
+
+def check_gf2(dev, gpu_name: str) -> dict:
+    """K4 bit for bit against its plain version at the card tests'
+    shapes and at the AES shape (M = 2^24 blocks, K = N = 128, the
+    cipher's ShiftRows∘MixColumns matrix), timed there beside its
+    bound, the plain version and ``torch._int_mm`` + ``& 1``."""
+    import torch
+    from repro_torch.apps import aes_app
+    from repro_torch.kernels.gf2_mvm import ops
+    bw, _, int8_rate = peaks(gpu_name)
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def max_err(got, x, a) -> int:
+        want = ops.gf2_mvm(x, a, backend="torch")
+        return int((got.to(torch.int32) - want).abs().max())
+
+    for k, n in GF2_SHAPES:
+        a = torch.randint(0, 2, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        for m in GF2_ROWS:
+            x = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            err = max_err(ops.gf2_mvm(x, a, backend="cuda"), x, a)
+            if err:
+                raise AssertionError(f"gf2_mvm not bit-exact at M={m} "
+                                     f"K={k} N={n}")
+    m, k, n = AES_BLOCKS, 128, 128
+    a = torch.as_tensor(aes_app._linear_matrices()[0], dtype=torch.int8,
+                        device=dev)
+    x = torch.randint(0, 2, (m, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    got = ops.gf2_mvm(x, a, backend="cuda")
+    err = max(max_err(got[r0:r0 + GF2_PLAIN_CHUNK],
+                      x[r0:r0 + GF2_PLAIN_CHUNK], a)
+              for r0 in range(0, m, GF2_PLAIN_CHUNK))
+    if err:
+        raise AssertionError(f"gf2_mvm not bit-exact at the AES shape M={m}")
+    del got
+    t = event_ms(lambda: ops.gf2_mvm(x, a, backend="cuda"))
+    plain = event_ms(lambda: ops.gf2_mvm(x, a, backend="torch"), reps=2)
+    acc = torch._int_mm(x, a)
+    mm = event_ms(lambda: torch._int_mm(x, a))
+    epi = event_ms(lambda: acc & 1)
+    del acc
+    bound = max((m * k + k * n + m * n) / bw, 2 * m * k * n / int8_rate) * 1e3
+    log(f"gf2_mvm bit-exact at M in {GF2_ROWS} x (K, N) in {GF2_SHAPES} and "
+        f"at M={m} K={k} N={n} | kernel {t:.4f} ms (plain {plain:.4f}, "
+        f"bound {bound:.4f}) | _int_mm {mm:.4f} ms + & 1 {epi:.4f} ms")
+    return dict(max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes", library_ms=mm + epi)
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: serving the full-width model
 # ---------------------------------------------------------------------------
@@ -405,41 +489,50 @@ def backend_parity(sched) -> None:
                              f"greedy differs")
 
 
-def device_busy(sched, mode: str) -> None:
-    """A short burst (4 requests of 20..32 prompt tokens, 6 tokens each:
-    2 prefill chunks a request, then a full slot pool decoding) under
-    ``torch.profiler``: the share of the wall time the card spends in
-    kernels, and the kernels that take it.  The profiler slows the host,
-    so its wall time is not the serve run's; the kernel times are the
-    card's.  The window is short because reading the trace back costs
-    far more than recording it."""
+def profiled(run) -> tuple[float, float, str] | None:
+    """``run()`` under ``torch.profiler``: (wall s, s the card spent in
+    kernels, the top kernels by time), or None when the profiler saw no
+    device time.  The profiler slows the host, so its wall time is not
+    an unprofiled run's; the kernel times are the card's."""
     import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import synthetic_workload
-    requests = synthetic_workload(4, sched.cfg.vocab_size, min_prompt=20,
-                                  max_prompt=32, max_new=6, seed=1)
     torch.cuda.synchronize()
-    steps, chunks = sched.decode_steps, sched.prefill_chunks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sched.run(requests)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: collections.Counter[str] = collections.Counter()
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             by_name[evt.name] += evt.time_range.elapsed_us()
-    busy = sum(by_name.values()) / 1e6
     if not by_name:
-        log(f"profile {mode}: the profiler saw no device time (not "
-            f"measured)")
-        return
+        return None
     top = ", ".join(
         f"{name.replace('void ', '').replace('(anonymous namespace)::', '')[:40]}"
         f" {us / 1e3:.1f} ms" for name, us in by_name.most_common(6))
+    return wall, sum(by_name.values()) / 1e6, top
+
+
+def device_busy(sched, mode: str) -> None:
+    """A short burst (4 requests of 20..32 prompt tokens, 6 tokens each:
+    2 prefill chunks a request, then a full slot pool decoding) under
+    the profiler: the share of the wall time the card spends in kernels,
+    and the kernels that take it.  The window is short because reading
+    the trace back costs far more than recording it."""
+    from repro_torch.serve import synthetic_workload
+    requests = synthetic_workload(4, sched.cfg.vocab_size, min_prompt=20,
+                                  max_prompt=32, max_new=6, seed=1)
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    res = profiled(lambda: sched.run(requests))
+    if res is None:
+        log(f"profile {mode}: the profiler saw no device time (not "
+            f"measured)")
+        return
+    wall, busy, top = res
     log(f"profile {mode}: {sched.decode_steps - steps} decode steps + "
         f"{sched.prefill_chunks - chunks} prefill chunks, wall "
         f"{wall:.3f} s under the profiler, kernels {busy:.3f} s "
@@ -463,6 +556,106 @@ def serve_phases(smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the AES path
+# ---------------------------------------------------------------------------
+
+FIPS197 = [  # (key, plaintext, ciphertext): Appendix C.1-C.3 and B
+    ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
+     "69c4e0d86a7b0430d8cdb78070b4c55a"),
+    ("000102030405060708090a0b0c0d0e0f1011121314151617",
+     "00112233445566778899aabbccddeeff", "dda97ca4864cdfe06eaf70a0ec0d7191"),
+    ("000102030405060708090a0b0c0d0e0f101112131415161718191a1b1c1d1e1f",
+     "00112233445566778899aabbccddeeff", "8ea2b7ca516745bfeafc49904b496089"),
+    ("2b7e151628aed2a6abf7158809cf4f3c", "3243f6a8885a308d313198a2e0370734",
+     "3925841d02dc09fbdc118597196a0b32"),
+]
+
+
+def check_fips197(dev) -> None:
+    """The FIPS-197 vectors through the numpy oracle, the bulk cipher
+    (K4 and the plain composition) and the DCE path, on the card."""
+    import numpy as np
+    from repro_torch.apps import aes_app
+
+    def h(s):
+        return np.frombuffer(bytes.fromhex(s), np.uint8).copy()
+
+    for key, pt, ct in FIPS197:
+        key, pt, ct = h(key), h(pt), h(ct)
+        got = {"oracle": aes_app.aes_encrypt_np(pt, key),
+               "dce": aes_app.aes_encrypt_dce(pt[None], key, device=dev)[0]}
+        for use_kernel in (True, False):
+            c = aes_app.aes_encrypt(pt[None], key, use_kernel=use_kernel,
+                                    device=dev)
+            back = aes_app.aes_decrypt(c, key, use_kernel=use_kernel,
+                                       device=dev)
+            got[f"bulk kernel={use_kernel}"] = c[0].cpu().numpy()
+            if not np.array_equal(back[0].cpu().numpy(), pt):
+                raise AssertionError(f"FIPS-197 decrypt failed, kernel="
+                                     f"{use_kernel}, key {key.tobytes().hex()}")
+        bad = [k for k, v in got.items() if not np.array_equal(v, ct)]
+        if bad:
+            raise AssertionError(f"FIPS-197 vector of key "
+                                 f"{key.tobytes().hex()} failed on {bad}")
+    log("aes: FIPS-197 Appendix B and C.1-C.3 equal through the oracle, "
+        "the bulk cipher (K4 and plain) and the DCE path")
+
+
+def aes_phase(dev, smi: str) -> dict[str, int]:
+    """Phase 6; returns each kernel's launches on the AES path."""
+    import gc
+    import torch
+    from repro_torch.apps import aes_app
+    from repro_torch.kernels import registry
+    from repro_torch.launch import aes
+    launches: dict[str, int] = {}
+    for key_bytes in (16, 24, 32):
+        registry.reset_launches()
+        res = aes.main(["--blocks", str(AES_BLOCKS), "--key-bytes",
+                        str(key_bytes), "--seed", "0", "--device",
+                        str(dev)])
+        torch.cuda.synchronize()
+        counts = dict(registry.LAUNCHES)
+        nr = res["rounds"]
+        # warm-up and timed call each encrypt (Nr) and decrypt (Nr - 1)
+        want = {"gf2_mvm": 2 * (2 * nr - 1)}
+        if (res["encrypt_launches"], res["decrypt_launches"]) != (nr, nr - 1) \
+                or counts != want:
+            raise AssertionError(
+                f"AES-{8 * key_bytes}: K4 launches encrypt "
+                f"{res['encrypt_launches']} decrypt "
+                f"{res['decrypt_launches']} (want {nr}, {nr - 1}); run "
+                f"{counts}, want {want}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        gates = res["gates"]
+        log(f"aes AES-{8 * key_bytes}: {AES_BLOCKS} blocks, "
+            f"encrypt_MB_per_s={res['encrypt_mb_per_s']:.1f} "
+            f"decrypt_MB_per_s={res['decrypt_mb_per_s']:.1f} on {smi}; "
+            f"oracle equal on {res['oracle_blocks']} strided blocks, "
+            f"round trip equal on every block, K4 launches {nr} / {nr - 1} "
+            f"per encrypt / decrypt; DCE path on {res['dce_blocks']} blocks "
+            f"equal, {gates.nor} NOR + {gates.copy} copy primitives")
+        pt, key = res["pt"], res["key"]
+        del res
+        prof = profiled(lambda: aes_app.aes_encrypt(pt, key, use_kernel=True,
+                                                    device=dev))
+        if prof is None:
+            log(f"profile aes-{8 * key_bytes}: the profiler saw no device "
+                f"time (not measured)")
+        else:
+            wall, busy, top = prof
+            log(f"profile aes-{8 * key_bytes}: one bulk encryption, wall "
+                f"{wall:.3f} s under the profiler, kernels {busy:.3f} s "
+                f"({100 * busy / wall:.1f} % busy); top: {top}")
+        del pt
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_fips197(dev)
+    return launches
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -477,6 +670,10 @@ KERNELS = {
         source="src/repro_torch/kernels/paged_attention/csrc/"
                "paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:113"),
+    "gf2_mvm": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/gf2_mvm/csrc/gf2_mvm.cu",
+        replaces="src/repro/kernels/gf2_mvm/kernel.py:41"),
 }
 
 
@@ -485,6 +682,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["kernels"], default=None)
     args = ap.parse_args(argv)
 
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
@@ -517,11 +715,17 @@ def main(argv=None) -> int:
     # -- 3. kernels
     rows = check_mvm(dev, gpu_name)
     rows["paged_attention"] = check_attention(dev, gpu_name)
+    rows["gf2_mvm"] = check_gf2(dev, gpu_name)
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
         return 0
 
+    log(f"phases 1-3 done at {time.perf_counter() - start:.1f} s")
     launches = serve_phases(smi)
+    log(f"phases 4-5 done at {time.perf_counter() - start:.1f} s")
+    for k, v in aes_phase(dev, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 6 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

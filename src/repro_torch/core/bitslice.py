@@ -9,6 +9,7 @@ oracle for the ``bitslice_mvm`` kernel; it matches the JAX package's
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -78,6 +79,29 @@ def combine_planes(partials: torch.Tensor, bits_per_slice: int
         (n_slices,) + (1,) * (partials.ndim - 1))
     return torch.sum(partials.to(torch.int32) * weights, dim=0,
                      dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Input bit-slicing (one input bit applied per cycle through the DACs)
+# ---------------------------------------------------------------------------
+
+def slice_bits_input(x: torch.Tensor, bits: int, signed: bool = True,
+                     ) -> tuple[torch.Tensor, np.ndarray]:
+    """Int input -> binary planes + per-plane signed weights.
+
+    Returns (planes [bits, *x.shape] in {0,1} int32, weights [bits]
+    int64) such that ``x == sum_i weights[i] * planes[i]``.  For signed
+    inputs the planes are the two's-complement bits, top weight
+    negative."""
+    if signed:
+        u = torch.where(x < 0, x + (1 << bits), x).to(torch.int32)
+    else:
+        u = x.to(torch.int32)
+    planes = torch.stack([(u >> i) & 1 for i in range(bits)]).to(torch.int32)
+    weights = np.array([1 << i for i in range(bits)], dtype=np.int64)
+    if signed:
+        weights[bits - 1] = -weights[bits - 1]
+    return planes, weights
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import torch
 from repro_torch.core import bitslice
 from repro_torch.kernels import registry
 from repro_torch.kernels.bitslice_mvm import ops as mvm
+from repro_torch.kernels.gf2_mvm import ops as gf2
 from repro_torch.kernels.paged_attention import ops as pa
 
 # bf16 pools: the kernel sums in f32 in another order than the plain
@@ -91,3 +92,42 @@ def test_paged_attention_kernel_matches_plain(dev, s, softcap, q_dtype):
     with pytest.raises(registry.KernelTileError, match="bfloat16"):
         pa.paged_attention(*args[:3], args[3].float(), args[4].float(),
                            *args[5:], kv_len=w * bs - 3)
+
+
+@pytest.mark.cuda
+# K = 512 is the longest K the register-resident kernel takes; K = 1000
+# runs the long-K kernel
+@pytest.mark.parametrize("k,n", [(128, 128), (200, 129), (64, 32),
+                                 (512, 48), (1000, 129)])
+@pytest.mark.parametrize("m", [1, 7, 130, 4096])
+def test_gf2_mvm_kernel_bit_exact(dev, m, k, n):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    x = torch.from_numpy(rng.integers(0, 2, size=(m, k)).astype(np.int8))
+    a = torch.from_numpy(rng.integers(0, 2, size=(k, n)).astype(np.int8))
+    x, a = x.to(dev), a.to(dev)
+    registry.reset_launches()
+    got = gf2.gf2_mvm(x, a)
+    want = gf2.gf2_mvm(x, a, backend="torch")
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"gf2_mvm": 1}
+    assert got.dtype == torch.int8 and got.shape == (m, n)
+    assert torch.equal(got, want)
+    # only each byte's low bit counts: any int8 values give the parity of
+    # the integer product
+    xw = torch.from_numpy(rng.integers(-128, 128, size=(2, m, k)).astype(
+        np.int8)).to(dev)
+    got = gf2.gf2_mvm(xw, a)
+    want = (xw.cpu().to(torch.int64) @ a.cpu().to(torch.int64)) & 1
+    assert torch.equal(got.cpu().to(torch.int64), want)
+
+
+@pytest.mark.cuda
+def test_gf2_mvm_rejects_what_it_cannot_take(dev):
+    x = torch.zeros((4, 128), dtype=torch.int8, device=dev)
+    a = torch.zeros((128, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(registry.KernelTileError, match="int8"):
+        gf2.gf2_mvm(x.to(torch.int32), a)
+    with pytest.raises(registry.KernelTileError, match="int8"):
+        gf2.gf2_mvm(x, a.to(torch.int32))
+    with pytest.raises(registry.KernelTileError, match="on"):
+        gf2.gf2_mvm(x, a.cpu())

@@ -4,17 +4,20 @@
     the JAX package (an AST scan, so comments and strings do not count);
   * every entry point called without ``device`` on a machine with no
     CUDA raises instead of running on the CPU;
-  * the serving CLI runs end to end when the CPU is asked for.
+  * the serving and AES CLIs run end to end when the CPU is asked for.
 """
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.apps import aes_app
 from repro_torch.config import PUMConfig
-from repro_torch.launch import serve
+from repro_torch.core.hct import DarthPUMDevice
+from repro_torch.launch import aes, serve
 from repro_torch.models import lm
 from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
 
@@ -66,6 +69,15 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         ContinuousBatchingScheduler(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--requests", "1"])
+    pt, key = np.zeros((2, 16), np.uint8), np.zeros(16, np.uint8)
+    for entry in (aes_app.aes_encrypt, aes_app.aes_decrypt,
+                  aes_app.aes_encrypt_dce):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(pt, key)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DarthPUMDevice(n_hcts=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        aes.main(["--blocks", "256"])
 
 
 @pytest.mark.parametrize("mode", ["pum", "int8"])
@@ -84,3 +96,17 @@ def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
     # every prompt of 3..9 tokens streams in ceil(len / 4) chunks
     assert sched.prefill_chunks == sum(-(-len(r.prompt) // 4)
                                        for r in res["requests"])
+
+
+def test_aes_cli_on_the_cpu_when_asked(capsys):
+    res = aes.main(["--device", "cpu", "--blocks", "256", "--key-bytes",
+                    "32"])
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "MB/s" in out
+    assert "DARTH speedup" in out and "NOR +" in out
+    assert res["rounds"] == 14 and res["oracle_blocks"] == 256
+    assert res["dce_blocks"] == 256
+    assert res["oracle_ok"] and res["roundtrip_ok"] and res["dce_ok"]
+    assert res["ct"].shape == (256, 16) and res["ct"].device.type == "cpu"
+    # on the CPU the wrapper takes the plain version: no kernel launches
+    assert res["encrypt_launches"] == res["decrypt_launches"] == 0
