@@ -10,11 +10,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build   — compiles every ``src/repro_torch/**/csrc/*.cu`` for sm_90a,
    one ``nvcc`` per source, all started together.
 3. kernels — holds each hand-written kernel against its plain PyTorch
-   version at the main paths' shapes (bitslice MVM and GF(2) MVM bit
-   for bit, paged attention within the stated tolerance and its pools
-   bit for bit) and times kernel, plain version and one PyTorch library
-   call that computes the same function, beside the card's least time
-   (bound).
+   version at the main paths' shapes (bitslice MVM at M in {1, 4, 16}
+   and GF(2) MVM bit for bit, paged attention at the serve run's window
+   T=81 and a long one, T=1024, within the stated tolerance and its
+   pools bit for bit), checks that two calls on the same inputs give
+   the same bits (K1/K2 split over K, K3 split over the window), and
+   times kernel, plain version and one PyTorch library call that
+   computes the same function, beside the card's least time (bound);
+   then sums K1's and K2's times over the 7 x 36 projections of a
+   decode step (M=4) and of a prefill chunk (M=16) beside their bound.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -55,7 +59,11 @@ PEAKS = {"SXM": (3.35e12, 989e12, 1979e12),
 # scores and p*V in f32 in another order than the composition, so a
 # probability can round to the neighbouring bf16 value (2^-8 relative)
 # and the output to the neighbouring bf16 value; with O(1) inputs that
-# is within 2e-2 absolute + 2e-2 relative.
+# is within 2e-2 absolute + 2e-2 relative.  Each case must also be
+# within a bound read in the same run, which scales with the outputs
+# (at T=1024 they are some 20 times smaller than at T=81): the plain
+# version's own change when every V cell moves up by one bf16 ulp (times
+# 1 + ULP), one to two ulps of the largest outputs.
 ATTN_ATOL = 2e-2
 ATTN_RTOL = 2e-2
 
@@ -75,6 +83,11 @@ def log(msg: str) -> None:
 
 def peaks(name: str) -> tuple[float, float, float]:
     return PEAKS["PCIe" if "PCIe" in name else "SXM"]
+
+
+def share(bound: float, ms: float) -> str:
+    """The kernel's share of its bound: bound time over measured time."""
+    return f"{100 * bound / ms:.1f} %"
 
 
 def device_ms(fn, iters: int = 20, reps: int = 5) -> float:
@@ -145,15 +158,33 @@ class Rotating:
 
 MVM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 MVM_ROWS = [1, 4, 16]
+# Qwen2.5-3B's projections of one layer by (K, N): q and o, k and v,
+# gate and up, down; 36 layers
+MVM_PER_LAYER = {(2048, 2048): 2, (2048, 256): 2, (2048, 11008): 2,
+                 (11008, 2048): 1}
+LAYERS = 36
+STEP_ROWS = {4: "decode step", 16: "prefill chunk"}
+
+
+def deterministic(fn) -> bool:
+    """Two calls of ``fn`` on the same inputs give the same bits."""
+    import torch
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return torch.equal(a, b)
 
 
 def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
     import torch
     from repro_torch.core import bitslice
+    from repro_torch.kernels import registry
     from repro_torch.kernels.bitslice_mvm import ops
     bw, _, int8_rate = peaks(gpu_name)
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
+    # a decode step of the serve run's 4 slots (M=4) and a prefill chunk
+    # of 16 tokens (M=16): (kernel, M) -> [ms, bound]
+    step = {(name, m): [0.0, 0.0] for m in STEP_ROWS for name in ("K1", "K2")}
     for k, n in MVM_SHAPES:
         wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                            dtype=torch.int32)
@@ -184,6 +215,14 @@ def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
                     f"scaled max|diff|={err1}, int max|diff|={err2}, "
                     f"4-plane int equal="
                     f"{torch.equal(got4, ref2)}")
+            if not (deterministic(lambda: ops.bitslice_mvm_planes_scaled(
+                    x, planes, scale, backend="cuda"))
+                    and deterministic(lambda: ops.bitslice_mvm_planes(
+                        x, one, bits_per_slice=8, backend="cuda"))):
+                raise AssertionError(f"bitslice_mvm differs between two calls "
+                                     f"at M={m} K={k} N={n}")
+            splits = ops.mvm_plan(m, k, n, 4, registry.device_props(
+                dev.index)).splits
             # timings with the weights rotated past the L2 cache
             rp = Rotating(lambda: planes.clone(), planes.numel())
             rw = Rotating(lambda: one.clone(), one.numel())
@@ -203,10 +242,17 @@ def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
                      2 * 4 * m * k * n / int8_rate) * 1e3
             b2 = max((m * k + k * n + 4 * m * n) / bw,
                      2 * m * k * n / int8_rate) * 1e3
-            log(f"mvm M={m} K={k} N={n}: exact | K1 scaled {t1:.4f} ms "
-                f"(plain {p1:.4f}, bound {b1:.4f}) | K2 int8 {t2:.4f} ms "
-                f"(plain {p2:.4f}, bound {b2:.4f}) | _int_mm(M=32) "
+            log(f"mvm M={m} K={k} N={n} (K1 split {splits} ways over K): "
+                f"exact, two calls bit-equal | K1 scaled {t1:.4f} ms "
+                f"(plain {p1:.4f}, bound {b1:.4f}, {share(b1, t1)} of "
+                f"bound) | K2 int8 {t2:.4f} ms (plain {p2:.4f}, bound "
+                f"{b2:.4f}, {share(b2, t2)} of bound) | _int_mm(M=32) "
                 f"{lib:.4f} ms")
+            if m in STEP_ROWS:
+                n_step = LAYERS * MVM_PER_LAYER[(k, n)]
+                for name, t, b in (("K1", t1, b1), ("K2", t2, b2)):
+                    step[name, m][0] += n_step * t
+                    step[name, m][1] += n_step * b
             if (m, k, n) == (4, 2048, 11008):
                 rows["bitslice_mvm_scaled"] = dict(
                     max_abs_err=err1, ms=t1, plain_ms=p1, bound_ms=b1,
@@ -214,15 +260,24 @@ def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
                 rows["bitslice_mvm"] = dict(
                     max_abs_err=err2, ms=t2, plain_ms=p2, bound_ms=b2,
                     bound_by="bytes", library_ms=lib)
+    for (name, m), (ms, bound) in step.items():
+        log(f"mvm {name} device time per {STEP_ROWS[m]} at M={m} "
+            f"({LAYERS} layers x 7 projections): {ms:.3f} ms (bound "
+            f"{bound:.3f} ms)")
     return rows
 
 
-def _attn_case(dev, s: int, seed: int):
+ATTN_CASES = [(1, 81), (16, 81), (1, 1024)]       # (S, T window)
+
+
+def _attn_case(dev, s: int, kv_len: int, seed: int):
     """Qwen2.5-3B's head layout at the serve run's geometry: 4 rows,
-    blocks of 16, a 6-column table, window kv_len 81.  Row 2 is inactive
-    (its table is all trash); row 3 writes past its table width."""
+    blocks of 16, a table as wide as the T window (T = 81 is the serve
+    run's, 6 columns; T = 1024 a long context).  Row 2 is inactive (its
+    table is all trash); row 3 writes past its table width."""
     import torch
-    b, kvh, grp, hd, bs, w, kv_len = 4, 2, 8, 128, 16, 6, 81
+    b, kvh, grp, hd, bs = 4, 2, 8, 128, 16
+    w = -(-kv_len // bs)
     nb = 1 + b * w
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -235,12 +290,12 @@ def _attn_case(dev, s: int, seed: int):
     table = torch.arange(1, nb, device=dev, dtype=torch.int32).reshape(b, w)
     table[2] = 0
     if s == 1:
-        ci = [40, 70, 5, w * bs + 3]
+        ci = [kv_len // 2, kv_len - 11, 5, w * bs + 3]
     else:
-        ci = [32, 64, 0, w * bs - 8]
+        ci = [kv_len // 2 - 8, kv_len - s - 1, 0, w * bs - 8]
     cache_index = torch.tensor(ci, dtype=torch.int32, device=dev)
     return (q, k_new, v_new, k_pool, v_pool, table, table.clone(),
-            cache_index), kv_len
+            cache_index)
 
 
 def _attn_bound(args, kv_len: int, bw: float, flops: float) -> float:
@@ -259,17 +314,28 @@ def _attn_bound(args, kv_len: int, bw: float, flops: float) -> float:
     return max(nbytes / bw, ops / flops) * 1e3
 
 
+def _v_nudged(args):
+    """K3's inputs with every V cell, stored and new, one bf16 ulp up."""
+    v_new, v_pool = args[2], args[4]
+    return (args[:2] + ((v_new.float() * (1 + ULP)).to(v_new.dtype),)
+            + args[3:4] + ((v_pool.float() * (1 + ULP)).to(v_pool.dtype),)
+            + args[5:])
+
+
 def check_attention(dev, gpu_name: str) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops, ref
     bw, flops, _ = peaks(gpu_name)
     row = None
     active = [0, 1, 3]
-    for s in (1, 16):
-        args, kv_len = _attn_case(dev, s, seed=s)
+    for s, kv_len in ATTN_CASES:
+        args = _attn_case(dev, s, kv_len, seed=s)
         kp_ref, vp_ref, out_ref = ops.paged_attention(
             *args, kv_len=kv_len, backend="torch")
+        out_nudged = ops.paged_attention(*_v_nudged(args), kv_len=kv_len,
+                                         backend="torch")[2]
         kp, vp = args[3].clone(), args[4].clone()
         kargs = args[:3] + (kp, vp) + args[5:]
         _, _, out = ops.paged_attention(*kargs, kv_len=kv_len,
@@ -282,13 +348,21 @@ def check_attention(dev, gpu_name: str) -> dict:
                        and torch.equal(vp[1:], vp_ref[1:]))
         o, r = out[active].float(), out_ref[active].float()
         err = (o - r).abs().max().item()
-        close = torch.allclose(o, r, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+        tol = (out_nudged[active].float() - r).abs().max().item()
+        close = (torch.allclose(o, r, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+                 and 0 < tol and err <= tol)
         finite = bool(torch.isfinite(out[active].float()).all())
         if not (pools_equal and close and finite):
             raise AssertionError(
-                f"paged_attention S={s}: pools equal={pools_equal}, "
-                f"max|diff|={err} (atol {ATTN_ATOL}, rtol {ATTN_RTOL}), "
-                f"finite={finite}")
+                f"paged_attention S={s} T={kv_len}: pools equal="
+                f"{pools_equal}, max|diff|={err} (atol {ATTN_ATOL}, rtol "
+                f"{ATTN_RTOL}, one-ulp V bound {tol}), finite={finite}")
+        if not deterministic(lambda: ops.paged_attention(
+                *kargs, kv_len=kv_len, backend="cuda")[2][active]):
+            raise AssertionError(f"paged_attention S={s} T={kv_len} differs "
+                                 f"between two calls")
+        plan = ops.attention_plan(s, args[0].shape[3], args[0].shape[4],
+                                  kv_len, registry.device_props(dev.index))
         # timings: pools rotated past the L2 cache like the weights
         nbytes = 2 * args[3].numel() * args[3].element_size()
         rot = Rotating(lambda: (args[3].clone(), args[4].clone()), nbytes)
@@ -314,10 +388,15 @@ def check_attention(dev, gpu_name: str) -> dict:
         lib = device_ms(lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask, enable_gqa=True))
         bound = _attn_bound(args, kv_len, bw, flops)
-        log(f"paged_attention B=4 S={s} KV=2 G=8 hd=128 bs=16 T={kv_len}: "
-            f"max|diff|={err:.3g} pools bit-equal | kernel {t:.4f} ms "
-            f"(plain {p:.4f}, bound {bound:.4f}) | sdpa {lib:.4f} ms")
-        if s == 1:
+        log(f"paged_attention B=4 S={s} KV=2 G=8 hd=128 bs=16 T={kv_len} "
+            f"(window over {plan.splits} CTAs): max|diff|={err:.3g} (one-"
+            f"ulp V bound {tol:.3g}, max|out| "
+            f"{r.abs().max().item():.3g}) pools bit-equal, two calls "
+            f"bit-equal | "
+            f"kernel {t:.4f} ms (plain {p:.4f}, bound {bound:.4f}, "
+            f"{share(bound, t)} of bound) | sdpa {lib:.4f} ms, kernel / "
+            f"sdpa {t / lib:.3f}")
+        if (s, kv_len) == ATTN_CASES[0]:
             row = dict(max_abs_err=err, ms=t, plain_ms=p, bound_ms=bound,
                        bound_by="bytes", library_ms=lib)
     return row
@@ -375,7 +454,8 @@ def check_gf2(dev, gpu_name: str) -> dict:
     bound = max((m * k + k * n + m * n) / bw, 2 * m * k * n / int8_rate) * 1e3
     log(f"gf2_mvm bit-exact at M in {GF2_ROWS} x (K, N) in {GF2_SHAPES} and "
         f"at M={m} K={k} N={n} | kernel {t:.4f} ms (plain {plain:.4f}, "
-        f"bound {bound:.4f}) | _int_mm {mm:.4f} ms + & 1 {epi:.4f} ms")
+        f"bound {bound:.4f}, {share(bound, t)} of bound) | _int_mm "
+        f"{mm:.4f} ms + & 1 {epi:.4f} ms")
     return dict(max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound,
                 bound_by="bytes", library_ms=mm + epi)
 

@@ -6,9 +6,13 @@ loaded with ``ctypes``.  That takes seconds per file, where
 ``torch.utils.cpp_extension.load`` (whose sources include PyTorch's
 headers) takes minutes.
 
+A kernel's tile sizes and limits, which its launch plan in Python also
+needs, are stated once, in its package's ``ops.NVCC_DEFINES``, and
+given to ``nvcc`` as ``-D`` macros; the source defines none of them.
+
 Libraries go to ``build/kernels/`` at the root of the checkout (listed
-in ``.gitignore``), named by a hash of their source and flags, so a
-changed source is rebuilt and an unchanged one is reused.  They are
+in ``.gitignore``), named by a hash of their source, flags and macros,
+so a changed source is rebuilt and an unchanged one is reused.  They are
 built at first use — never when a module is imported — or all at once,
 in parallel, by :func:`build_all`.  A build failure raises; nothing
 falls back to the plain versions.
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import shutil
@@ -55,8 +60,20 @@ def _nvcc() -> str:
     return found
 
 
+def defines(src: pathlib.Path) -> tuple[str, ...]:
+    """The ``-D`` flags of a kernel source: its package's
+    ``ops.NVCC_DEFINES``, the constants its launch plan shares with it."""
+    ops = importlib.import_module(
+        f"repro_torch.kernels.{src.parent.parent.name}.ops")
+    return tuple(f"-D{k}={v}" for k, v in ops.NVCC_DEFINES.items())
+
+
+def _flags(src: pathlib.Path) -> tuple[str, ...]:
+    return NVCC_FLAGS + defines(src)
+
+
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -67,7 +84,7 @@ def _start(src: pathlib.Path) -> tuple[subprocess.Popen, pathlib.Path,
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *_flags(src), "-Xptxas", "-v", "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -12,6 +12,8 @@ Nothing falls back: a tensor the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import typing
 
 import torch
 
@@ -24,10 +26,70 @@ KERNEL = "bitslice_mvm"                  # backend selection key
 NAME_INT = "bitslice_mvm"                # launch counter: int32 out (K2)
 NAME_SCALED = "bitslice_mvm_scaled"      # launch counter: fused scale (K1)
 
+# what csrc/bitslice_mvm.cu is built for (NVCC_DEFINES gives it these):
+# a tile of BN columns and BK K rows a stage, ROW_TILES rows of x, a
+# ring of SHALLOW stages (DEEP with one plane, whose stages are small),
+# two CTAs per SM (its launch bounds), at most MAX_SLICES planes, N in
+# vectors of VEC bytes
+BN, BK, SHALLOW, DEEP = 128, 64, 3, 8
+ROW_TILES = (1, 4, 8, 16)
+CTAS_PER_SM = 2
+MAX_SLICES = 4
+VEC = 16
+NVCC_DEFINES = dict(BN=BN, BK=BK, VEC=VEC, MAX_S=MAX_SLICES,
+                    CTAS_PER_SM=CTAS_PER_SM, SHALLOW=SHALLOW, DEEP=DEEP,
+                    **{f"ROW_TILE{i}": t for i, t in enumerate(ROW_TILES)})
+# split-K parts form one thread block cluster of a power of two CTAs,
+# at most MAX_SPLITS (over 8 is a non-portable size, which Hopper takes),
+# each walking at least MIN_SPLIT_KTILES K tiles
+MAX_SPLITS = 16
+MIN_SPLIT_KTILES = 4
 
+
+class MvmPlan(typing.NamedTuple):
+    mt: int              # rows of x per CTA
+    row_tiles: int
+    col_tiles: int
+    ktiles: int          # K tiles of BK rows
+    splits: int          # parts of the K range: the cluster's CTAs
+    stages: int          # cp.async ring depth
+    smem: int            # dynamic shared bytes (the ring)
+
+
+@functools.lru_cache(maxsize=1024)
+def mvm_plan(m: int, k: int, n: int, s: int,
+             props: registry.DeviceProps) -> MvmPlan:
+    """The launch of an [m, k] x [s, k, n] product on a card with
+    ``props``: the least row tile that holds m, and, where the output
+    tiles alone leave SMs idle, as many K splits as still fit in one wave
+    of two CTAs per SM (a second, partial wave would leave most SMs idle
+    while it runs), each at least MIN_SPLIT_KTILES K tiles.  The splits
+    of a tile form one cluster, whose CTAs the card places in one GPC;
+    a power of two of them packs a GPC's CTA slots (two per SM, 16 or
+    18 SMs) without a remainder, where 3 of them left the last clusters
+    of 2048 x 11008 a second wave on an H100."""
+    mt = next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
+    row_tiles = -(-m // mt)
+    col_tiles = -(-n // BN)
+    ktiles = -(-k // BK)
+    wave = CTAS_PER_SM * props.sms
+    most = min(MAX_SPLITS, ktiles // MIN_SPLIT_KTILES,
+               wave // (row_tiles * col_tiles))
+    splits = 1 << (max(1, most).bit_length() - 1)
+    stages = DEEP if s == 1 else SHALLOW
+    smem = stages * (s * BK * BN + mt * BK)
+    static = 4 * mt * BN                 # the kernel's int32 tile sums
+    if smem + static > props.max_smem:
+        raise KernelTileError(f"{smem + static} shared bytes for {s} planes "
+                              f"at {mt} rows, over the card's "
+                              f"{props.max_smem}")
+    return MvmPlan(mt, row_tiles, col_tiles, ktiles, splits, stages, smem)
+
+
+@functools.cache
 def _kernel():
     fn = _build.load("bitslice_mvm").bitslice_mvm_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -44,13 +106,12 @@ def _check_cuda(x2: torch.Tensor, planes: torch.Tensor,
             f"planes must be contiguous int8 [S, K, N], got "
             f"{planes.dtype} {tuple(planes.shape)}")
     s, k, n = planes.shape
-    if not 1 <= s <= registry.MVM_MAX_SLICES:
-        raise KernelTileError(f"{s} planes; the kernel takes 1.."
-                              f"{registry.MVM_MAX_SLICES}")
-    if n % registry.MVM_VEC_N or planes.data_ptr() % 16:
+    if not 1 <= s <= MAX_SLICES:
+        raise KernelTileError(f"{s} planes; the kernel takes 1..{MAX_SLICES}")
+    if n % VEC or planes.data_ptr() % VEC:
         raise KernelTileError(
-            f"N={n} must be a multiple of {registry.MVM_VEC_N} and the "
-            f"planes 16-byte aligned for the kernel's vector loads")
+            f"N={n} must be a multiple of {VEC} and the planes {VEC}-byte "
+            f"aligned for the kernel's vector loads")
     if x2.shape[1] != k:
         raise KernelTileError(f"x has K={x2.shape[1]}, planes K={k}")
     if bits_per_slice * (s - 1) > 23:
@@ -61,17 +122,28 @@ def _check_cuda(x2: torch.Tensor, planes: torch.Tensor,
 def _launch(x2: torch.Tensor, planes: torch.Tensor,
             row_scale: torch.Tensor | None, bits_per_slice: int,
             ) -> torch.Tensor:
-    """x2: [M, K] int8 CUDA; planes: [S, K, N] int8; row_scale: [M] f32."""
+    """x2: [M, K] int8 CUDA; planes: [S, K, N] int8; row_scale: [M] f32.
+
+    Keeps nothing between calls: the split-K parts meet in the CTAs'
+    shared memory, so calls on any streams are independent."""
     _check_cuda(x2, planes, bits_per_slice)
     m, k = x2.shape
     s, _, n = planes.shape
+    if k % VEC or x2.data_ptr() % VEC:
+        # rows staged by 16-byte copies: pad them with zeros
+        xp = torch.zeros((m, -(-k // VEC) * VEC), dtype=torch.int8,
+                         device=x2.device)
+        xp[:, :k] = x2
+        x2 = xp
+    plan = mvm_plan(m, k, n, s, registry.device_props(x2.device.index))
     scaled = row_scale is not None
     out = torch.empty((m, n), device=x2.device,
                       dtype=torch.float32 if scaled else torch.int32)
     status = _kernel()(
         x2.data_ptr(), planes.data_ptr(),
         row_scale.data_ptr() if scaled else None, out.data_ptr(),
-        m, k, n, s, bits_per_slice, int(scaled),
+        m, k, n, x2.shape[1], s, bits_per_slice, plan.mt, plan.stages,
+        plan.splits, plan.smem, int(scaled),
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(status, "bitslice_mvm")
     registry.count_launch(NAME_SCALED if scaled else NAME_INT)

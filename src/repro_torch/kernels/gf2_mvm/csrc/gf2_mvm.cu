@@ -41,15 +41,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// THREADS, which the launch plan in ops.py shares with this file, is
+// ops.NVCC_DEFINES, given to nvcc as a -D macro by kernels/_build.py
+#ifndef THREADS
+#error "build with the -D macros of gf2_mvm/ops.py (kernels/_build.py)"
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int ROWS = THREADS;     // rows of x per tile, one per thread
 constexpr int COLS = 128;         // output columns per CTA
 constexpr int MAX_KW4 = 4;        // K <= 4 * 4 * 32 = 512
 constexpr int SHORT_K = 4 * 32 * MAX_KW4;
 constexpr int KC = 512;           // rows of a per chunk, long-K kernel
-constexpr int MAX_CTAS = 1056;    // 132 SMs x 8 resident CTAs
 
 // bit 0 of each of the 4 bytes of v -> bits 0..3 (the multiply moves
 // byte i's bit 0 to bit 28 + i; the other partial products land on
@@ -212,16 +216,19 @@ gf2_mvm_long_k_kernel(const int8_t* __restrict__ x,
 
 }  // namespace
 
+// max_ctas, from ops.py: the CTAs the card holds at once (its SMs times
+// the CTAs of THREADS threads an SM holds), the grid's most
 extern "C" int gf2_mvm_launch(const void* x, const void* a, void* out, int M,
-                              int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+                              int K, int N, int max_ctas, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || max_ctas < 1)
+    return (int)cudaErrorInvalidValue;
   const int kw4 = ((K + 31) / 32 + 3) / 4;
   const bool vec = K % 16 == 0 && N % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const long long row_tiles = ((long long)M + ROWS - 1) / ROWS;
   const int col_tiles = (N + COLS - 1) / COLS;
-  const long long cap = col_tiles >= MAX_CTAS ? 1 : MAX_CTAS / col_tiles;
+  const long long cap = col_tiles >= max_ctas ? 1 : max_ctas / col_tiles;
   const dim3 grid((unsigned)(row_tiles < cap ? row_tiles : cap),
                   (unsigned)col_tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

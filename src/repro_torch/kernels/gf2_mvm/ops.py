@@ -10,6 +10,7 @@ raises :class:`KernelTileError`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,11 +19,16 @@ from repro_torch.kernels.gf2_mvm.ref import gf2_mvm_ref
 from repro_torch.kernels.registry import KernelBackend, KernelTileError
 
 NAME = "gf2_mvm"                         # backend key and launch counter
+# threads per CTA of csrc/gf2_mvm.cu (NVCC_DEFINES gives it this); its
+# grid is at most the CTAs the card holds at once, one wave
+THREADS = 256
+NVCC_DEFINES = dict(THREADS=THREADS)
 
 
+@functools.cache
 def _kernel():
     fn = _build.load("gf2_mvm").gf2_mvm_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -41,8 +47,10 @@ def _launch(x2: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), device=x2.device, dtype=torch.int8)
     if m == 0 or n == 0:
         return out
+    props = registry.device_props(x2.device.index)
+    wave = props.sms * (props.max_threads // THREADS)
     status = _kernel()(x2.data_ptr(), a.data_ptr(), out.data_ptr(), m, k, n,
-                       torch.cuda.current_stream(x2.device).cuda_stream)
+                       wave, torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(status, "gf2_mvm")
     registry.count_launch(NAME)
     return out

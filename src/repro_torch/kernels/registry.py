@@ -16,14 +16,18 @@
 
 The registry also holds the launch counters: each wrapper adds one to
 its kernel's count where it launches the kernel, and nowhere else, so a
-run can show that the main path went through the kernels.
+run can show that the main path went through the kernels, and each
+card's properties (:func:`device_props`), from which the kernels'
+launch plans are sized.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import enum
+import functools
 import threading
+import typing
 
 import torch
 
@@ -121,17 +125,21 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Tiling policy: Hopper's, not the TPU's sublane floors
+# The card's own numbers, for the kernels' launch plans
 # ---------------------------------------------------------------------------
 
-# bitslice_mvm (csrc/bitslice_mvm.cu tiles 16 rows x 32 columns x 256 K
-# per CTA): at most four planes, and N a multiple of 16 because each
-# thread stages 16 contiguous bytes of a plane row with one vector load.
-MVM_MAX_SLICES = 4
-MVM_VEC_N = 16
+class DeviceProps(typing.NamedTuple):
+    """What a launch plan needs to know of the card."""
+    sms: int             # streaming multiprocessors
+    max_smem: int        # shared bytes one CTA may opt in to
+    max_threads: int     # resident threads an SM holds
 
-# paged_attention: one warp per (query, group-head) pair, 8 warps a CTA;
-# each warp keeps its row's T f32 scores in shared memory, so T is bounded
-# by the 227 KB a CTA may use.
-ATTN_WARPS = 8
-ATTN_MAX_SMEM = 227 * 1024
+
+@functools.cache
+def device_props(index: int) -> DeviceProps:
+    """The properties of CUDA device ``index``, read from the card once
+    per process and device."""
+    p = torch.cuda.get_device_properties(index)
+    return DeviceProps(p.multi_processor_count,
+                       p.shared_memory_per_block_optin,
+                       p.max_threads_per_multi_processor)

@@ -14,8 +14,12 @@ from repro_torch.kernels.paged_attention import ops as pa
 
 # bf16 pools: the kernel sums in f32 in another order than the plain
 # version, so a probability or an output may round to the neighbouring
-# bf16 value (2^-8 relative); outputs of O(1) agree within 2e-2
+# bf16 value (2^-8 relative); outputs of O(1) agree within 2e-2.  Paged
+# attention must also stay within the plain version's own change when
+# every V cell moves up by one bf16 ulp (times 1 + ULP), a bound that
+# scales with the outputs: over a long window they are small.
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+ULP = 2.0 ** -7
 
 
 @pytest.fixture
@@ -92,6 +96,202 @@ def test_paged_attention_kernel_matches_plain(dev, s, softcap, q_dtype):
     with pytest.raises(registry.KernelTileError, match="bfloat16"):
         pa.paged_attention(*args[:3], args[3].float(), args[4].float(),
                            *args[5:], kv_len=w * bs - 3)
+
+
+# (K, N): K within one tile (no split), K not a multiple of the 64-row
+# tile or of the 16-byte x row (x padded; split over K from 1000 on),
+# the narrow projections (split over K in a cluster of 8 and of 16),
+# and a wide N where the output tiles leave little room to split
+MVM_PLAN_SHAPES = [(64, 16), (300, 48), (299, 32), (1000, 48), (2048, 256),
+                   (11008, 2048), (2048, 12288)]
+
+
+def _mvm_args(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((m, 1), generator=g, device=dev)
+    return x, planes, wq.to(torch.int8)[None], scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MVM_PLAN_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 7, 16, 33])
+def test_bitslice_mvm_launch_plans_bit_exact(dev, m, k, n):
+    """Every row tile (1 and 4 on __dp4a, 8 and 16 on the tensor cores)
+    and split-K plan, bit for bit, and the same bits on a second call
+    (the split parts meet in a fixed order)."""
+    x, planes, one, scale = _mvm_args(dev, m, k, n, 7 * m + k + n)
+    plan = mvm.mvm_plan(m, k, n, 4, registry.device_props(dev.index))
+    registry.reset_launches()
+    first = None
+    for _ in range(2):
+        got = (mvm.bitslice_mvm_planes_scaled(x, planes, scale),
+               mvm.bitslice_mvm_planes(x, one, bits_per_slice=8),
+               mvm.bitslice_mvm_planes(x, planes))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], mvm.bitslice_mvm_planes_scaled(
+            x, planes, scale, backend="torch"))
+        want = mvm.bitslice_mvm_planes(x, one, bits_per_slice=8,
+                                       backend="torch")
+        assert torch.equal(got[1], want) and torch.equal(got[2], want)
+        if first is not None:
+            assert all(torch.equal(a, b) for a, b in zip(first, got))
+        first = got
+    assert registry.LAUNCHES == {"bitslice_mvm_scaled": 2,
+                                 "bitslice_mvm": 4}
+    # split over K wherever K has two splits' worth of tiles and the
+    # output tiles leave a wave of CTAs unfilled (on an H100 SXM: K from
+    # 1000 on, but not M=33 at N=12288)
+    assert (plan.splits > 1) == (
+        plan.ktiles >= 2 * mvm.MIN_SPLIT_KTILES and plan.row_tiles
+        * plan.col_tiles * 2 <= mvm.CTAS_PER_SM
+        * registry.device_props(dev.index).sms)
+
+
+def _attn_args(dev, *, s, q_dtype, hd, t, seed, bs=16, b=4, kvh=2, grp=8):
+    """Rows 0 and 1 active, row 2 inactive (an all-trash table), row 3
+    writing past its table width; a window of T keys, blocks shuffled."""
+    rng = np.random.default_rng(seed)
+    w = -(-max(t, s + 8) // bs) + 1
+    nb = 1 + b * w
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+
+    table = torch.from_numpy(rng.permutation(nb - 1).astype(np.int32) + 1)
+    table = table.to(dev).reshape(b, w)
+    table[2] = 0
+    ci = torch.tensor([min(t, w * bs) - s, max(0, t // 2 - s), 3,
+                       w * bs - s // 2], dtype=torch.int32, device=dev)
+    return [rnd(b, s, kvh, grp, hd, dtype=q_dtype),
+            rnd(b, s, kvh, hd, dtype=q_dtype),
+            rnd(b, s, kvh, hd, dtype=q_dtype),
+            rnd(nb, bs, kvh, hd), rnd(nb, bs, kvh, hd), table,
+            table.clone(), ci]
+
+
+ACTIVE = [0, 1, 3]
+
+
+def _assert_within_one_ulp_of_v(got, args, t, rows, softcap=0.0):
+    """max|got - plain| over ``rows`` is at most the plain version's
+    change when every V cell, stored and new, moves up one bf16 ulp."""
+    want = pa.paged_attention(*args, kv_len=t, softcap=softcap,
+                              backend="torch")[2][rows].float()
+    nudged = list(args)
+    for i in (2, 4):
+        nudged[i] = (args[i].float() * (1 + ULP)).to(args[i].dtype)
+    moved = pa.paged_attention(*nudged, kv_len=t, softcap=softcap,
+                               backend="torch")[2][rows].float()
+    err = (got[rows].float() - want).abs().max().item()
+    bound = (moved - want).abs().max().item()
+    assert 0 < bound and err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,hd,softcap,q_dtype", [
+    (1, 81, 128, 0.0, torch.bfloat16),      # one CTA per (row, head)
+    (1, 128, 128, 0.0, torch.bfloat16),
+    (1, 129, 128, 0.0, torch.bfloat16),     # a cluster of two
+    (1, 1024, 128, 0.0, torch.bfloat16),    # a cluster of eight
+    (16, 81, 128, 0.0, torch.bfloat16),     # 16 query groups
+    (16, 1000, 128, 0.0, torch.bfloat16),
+    (64, 200, 128, 0.0, torch.bfloat16),
+    (64, 1000, 128, 0.0, torch.bfloat16),
+    (1, 1000, 128, 30.0, torch.bfloat16),   # softcap: every key visited
+    (16, 300, 128, 30.0, torch.bfloat16),
+    (1, 1000, 128, 0.0, torch.float32),     # f32 queries
+    (16, 120, 128, 0.0, torch.float32),
+    (4, 150, 256, 0.0, torch.bfloat16),     # 8 dims per lane
+    (64, 700, 256, 30.0, torch.float32),
+    (1, 3000, 64, 0.0, torch.bfloat16),     # several tiles per CTA
+    (64, 90, 64, 0.0, torch.bfloat16),
+    (1, 70, 32, 0.0, torch.bfloat16),       # 1 dim per lane
+    (3, 500, 96, 0.0, torch.float32)])      # 3 dims per lane
+def test_paged_attention_kernel_launch_plans(dev, s, t, hd, softcap,
+                                             q_dtype):
+    """Every kind of plan against the plain version, and the same bits
+    on a second call (the window's parts meet in a fixed order)."""
+    args = _attn_args(dev, s=s, q_dtype=q_dtype, hd=hd, t=t,
+                      seed=s * 1000 + t + hd)
+    rk, rv, ro = pa.paged_attention(*args, kv_len=t, softcap=softcap,
+                                    backend="torch")
+    registry.reset_launches()
+    kk, kv, ko = pa.paged_attention(*args, kv_len=t, softcap=softcap)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"paged_attention": 1}
+    assert torch.equal(kk[1:], rk[1:]) and torch.equal(kv[1:], rv[1:])
+    assert torch.isfinite(ko[ACTIVE].float()).all()
+    torch.testing.assert_close(ko[ACTIVE].float(), ro[ACTIVE].float(),
+                               **BF16_TOL)
+    _assert_within_one_ulp_of_v(ko, args, t, ACTIVE, softcap)
+    _, _, again = pa.paged_attention(*args, kv_len=t, softcap=softcap)
+    torch.cuda.synchronize()
+    assert torch.equal(again[ACTIVE], ko[ACTIVE])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t", [(1, 81), (1, 1000), (16, 81)])
+def test_paged_attention_attends_the_cells_it_stores(dev, s, t):
+    """Each row's newest key is its query scaled up, so its last query
+    puts nearly all weight on the cell this very call stores: a read of
+    the pool before the store would return the old row."""
+    args = _attn_args(dev, s=s, q_dtype=torch.bfloat16, hd=128, t=t,
+                      seed=3)
+    q, k_new = args[0], args[1]
+    k_new[:, -1] = (8.0 * q[:, -1, :, 0]).to(k_new.dtype)
+    q[:, -1] = q[:, -1, :, :1]              # every head of the last query
+    rk, rv, ro = pa.paged_attention(*args, kv_len=t, backend="torch")
+    kk, kv, ko = pa.paged_attention(*args, kv_len=t)
+    torch.cuda.synchronize()
+    rows = [0, 1]                           # their last key is in the window
+    assert torch.equal(kk[1:], rk[1:]) and torch.equal(kv[1:], rv[1:])
+    torch.testing.assert_close(ko[rows].float(), ro[rows].float(),
+                               **BF16_TOL)
+    _assert_within_one_ulp_of_v(ko, args, t, rows)
+    last = ro[rows, -1].float()
+    assert torch.allclose(last, args[2][rows, -1, :, None].float()
+                          .expand_as(last), atol=0.1, rtol=0.1)
+
+
+@pytest.mark.cuda
+def test_kernels_on_two_streams_at_once(dev):
+    """K1 split over K and K3 split over a window, each launched on two
+    streams in turn, 20 times, with different inputs on each stream:
+    nothing one stream's launch leaves behind reaches the other's, and
+    every output equals its plain version."""
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    mvm_in = [_mvm_args(dev, 4, 2048, 256, seed) for seed in (1, 2)]
+    attn_in = [_attn_args(dev, s=1, q_dtype=torch.bfloat16, hd=128, t=1024,
+                          seed=seed) for seed in (1, 2)]
+    assert mvm.mvm_plan(4, 2048, 256, 4,
+                        registry.device_props(dev.index)).splits > 1
+    want_mvm = [mvm.bitslice_mvm_planes_scaled(x, p, sc, backend="torch")
+                for x, p, _, sc in mvm_in]
+    want_attn = [pa.paged_attention(*a, kv_len=1024, backend="torch")[2]
+                 for a in attn_in]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                x, p, _, sc = mvm_in[i]
+                outs[i].append((mvm.bitslice_mvm_planes_scaled(x, p, sc),
+                                pa.paged_attention(*attn_in[i],
+                                                   kv_len=1024)[2]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got_mvm, got_attn in outs[i]:
+            assert torch.equal(got_mvm, want_mvm[i])
+            torch.testing.assert_close(got_attn[ACTIVE].float(),
+                                       want_attn[i][ACTIVE].float(),
+                                       **BF16_TOL)
+            assert torch.equal(got_attn[ACTIVE], outs[i][0][1][ACTIVE])
 
 
 @pytest.mark.cuda

@@ -1,6 +1,9 @@
 """The port's kernel families: the plain PyTorch versions against the
 JAX package's oracles on the CPU, and the registry's dispatch rules.
 The CUDA kernels against their plain versions: ``test_torch_cuda.py``."""
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,8 +15,9 @@ from repro.kernels.bitslice_mvm import ops as jmvm
 from repro.kernels.bitslice_mvm.ref import bitslice_mvm_ref as j_mvm_ref
 from repro.kernels.paged_attention.ref import paged_attention_ref as j_pa_ref
 from repro.models import attention as jattn
-from repro_torch.kernels import registry
+from repro_torch.kernels import _build, registry
 from repro_torch.kernels.bitslice_mvm import ops as tmvm
+from repro_torch.kernels.gf2_mvm import ops as tgf2
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import paged_write_cells
 
@@ -206,3 +210,206 @@ def test_plain_versions_count_no_launches():
                                     torch.from_numpy(planes),
                                     torch.from_numpy(scale))
     assert sum(registry.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plans (plain arithmetic, checked here on the CPU for
+# a card described by a stub of its properties)
+# ---------------------------------------------------------------------------
+
+H100 = registry.DeviceProps(sms=132, max_smem=232448, max_threads=2048)
+PCIE = registry.DeviceProps(sms=114, max_smem=232448, max_threads=2048)
+SERVED_MVM = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
+
+
+@pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 16, 17, 33, 200])
+@pytest.mark.parametrize("k,n", [(1, 16), (64, 16), (300, 48), (2048, 256),
+                                 (2048, 2048), (2048, 11008),
+                                 (11008, 2048), (2048, 12288)])
+def test_mvm_plan_covers_k_once_and_fits(m, k, n, s, props):
+    plan = tmvm.mvm_plan(m, k, n, s, props)
+    assert plan.mt >= min(m, 16) and plan.mt in tmvm.ROW_TILES
+    assert plan.mt * plan.row_tiles >= m > plan.mt * (plan.row_tiles - 1)
+    assert plan.col_tiles * tmvm.BN >= n > (plan.col_tiles - 1) * tmvm.BN
+    assert plan.ktiles * tmvm.BK >= k > (plan.ktiles - 1) * tmvm.BK
+    # the K tiles [kt0, kt1) each split walks, as the kernel cuts them
+    ranges = [(z * plan.ktiles // plan.splits,
+               (z + 1) * plan.ktiles // plan.splits)
+              for z in range(plan.splits)]
+    covered = [kt for lo, hi in ranges for kt in range(lo, hi)]
+    assert covered == list(range(plan.ktiles))      # each K tile once
+    assert all(hi > lo for lo, hi in ranges)        # no empty split
+    assert plan.smem + 4 * plan.mt * tmvm.BN <= props.max_smem
+    assert plan.stages == (tmvm.DEEP if s == 1 else tmvm.SHALLOW)
+    # a power-of-two cluster of splits, as large as one wave of CTAs,
+    # the cluster limit and MIN_SPLIT_KTILES K tiles a split allow
+    tiles = plan.row_tiles * plan.col_tiles
+    wave = tmvm.CTAS_PER_SM * props.sms
+    sp = plan.splits
+    assert sp & (sp - 1) == 0 and 1 <= sp <= tmvm.MAX_SPLITS
+
+    def fits(n):
+        return n <= tmvm.MAX_SPLITS and n * tiles <= wave \
+            and n * tmvm.MIN_SPLIT_KTILES <= plan.ktiles
+
+    assert sp == 1 or fits(sp)
+    assert not fits(2 * sp)
+
+
+def test_mvm_plan_at_the_served_shapes():
+    """Qwen2.5-3B's projections at decode (M=4) on an H100 SXM: the
+    narrow ones split over a cluster of 8 or 16, the wide up-projection
+    two ways (172 CTAs); the split follows the card's SMs."""
+    got = {kn: tmvm.mvm_plan(4, *kn, 4, H100) for kn in SERVED_MVM}
+    assert all(p.mt == 4 and p.row_tiles == 1 for p in got.values())
+    assert {kn: p.splits for kn, p in got.items()} == {
+        (2048, 2048): 8, (2048, 256): 8, (2048, 11008): 2,
+        (11008, 2048): 16}
+    assert got[(2048, 11008)].col_tiles * got[(2048, 11008)].splits == 172
+    assert tmvm.mvm_plan(4, 2048, 2048, 4,
+                         H100._replace(sms=48)).splits == 4
+    assert tmvm.mvm_plan(1, 2048, 11008, 1, H100).stages == tmvm.DEEP
+    # a card with too little shared memory for the ring is refused
+    with pytest.raises(registry.KernelTileError):
+        tmvm.mvm_plan(4, 2048, 256, 4, H100._replace(max_smem=48 * 1024))
+
+
+@pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("t", [1, 31, 81, 128, 129, 1000, 1024, 7136])
+@pytest.mark.parametrize("s,g", [(1, 8), (1, 4), (1, 16), (16, 8), (64, 8)])
+def test_attention_plan_covers_the_window_and_fits(hd, t, s, g, props):
+    plan = tpa.attention_plan(s, g, hd, t, props)
+    assert plan.query_groups * plan.warps >= s * g \
+        > (plan.query_groups - 1) * plan.warps
+    # every key in one tile of one split, a score slot for each
+    chunks = -(-t // plan.chunk)
+    assert 1 <= plan.splits <= min(tpa.MAX_SPLITS, chunks)
+    assert plan.keys_per_cta % plan.chunk == 0
+    assert plan.keys_per_cta * plan.splits >= chunks * plan.chunk
+    assert plan.keys_per_cta - plan.chunk < -(-t // plan.splits)
+    assert 2 <= plan.stages <= min(tpa.MAX_STAGES,
+                                   max(2, 2 * plan.keys_per_cta
+                                       // plan.chunk))
+    assert plan.chunk % 16 == 0 and plan.warps <= tpa.MMA_ROWS
+    assert plan.row >= hd and plan.row % 8 == 0
+    lay = plan.layout
+    assert lay == tpa.smem_layout(plan.warps, hd, plan.keys_per_cta,
+                                  plan.chunk, plan.row, plan.stages)
+    assert plan.smem == lay.bytes <= props.max_smem
+    # the regions the kernel range-checks: 16-byte aligned, in order,
+    # each as large as what it holds (p * V parts from 0, (max, sum),
+    # scores, two query tiles, p, the ring)
+    assert all(off % 16 == 0 for off in lay[:6])
+    assert lay.stats >= plan.warps * hd * 4
+    assert lay.scores >= lay.stats + plan.warps * 8
+    assert lay.qhi >= lay.scores + plan.warps * plan.keys_per_cta * 4
+    assert lay.qlo - lay.qhi == lay.probs - lay.qlo \
+        == tpa.MMA_ROWS * plan.row * 2
+    assert lay.prow >= plan.keys_per_cta and lay.prow % 8 == 0
+    assert lay.tiles >= lay.probs + tpa.MMA_ROWS * lay.prow * 2
+    assert lay.bytes == lay.tiles + plan.stages * plan.chunk * plan.row * 2
+
+
+def test_attention_plan_at_the_served_shapes():
+    """Qwen2.5-3B (G=8, hd=128): a decode step over the smoke window is
+    one CTA per (row, head); a prefill chunk of 16 takes 16 query
+    groups; T=1024 splits the window over a cluster of 8; the edges
+    (S=64, hd=256, a long window) fit; a window too long for the card's
+    shared memory is refused."""
+    decode = tpa.attention_plan(1, 8, 128, 81, H100)
+    assert decode[:-1] == (8, 128, 136, 1, 1, 128, 2,
+                           (8 * 128 * 4 + 8 * 8) + 8 * 128 * 4
+                           + 2 * 16 * 136 * 2 + 16 * 136 * 2
+                           + 2 * 128 * 136 * 2)
+    assert decode.layout == tpa.SmemLayout(
+        stats=4096, scores=4160, qhi=8256, qlo=12608, probs=16960,
+        tiles=21312, prow=136, bytes=decode.smem)
+    chunk16 = tpa.attention_plan(16, 8, 128, 81, H100)
+    assert (chunk16.query_groups, chunk16.splits) == (16, 1)
+    long = tpa.attention_plan(1, 8, 128, 1024, H100)
+    assert (long.splits, long.keys_per_cta, long.stages) == (8, 128, 2)
+    edge = tpa.attention_plan(64, 8, 256, 1000, H100)
+    assert (edge.query_groups, edge.splits) == (64, 8)
+    deep = tpa.attention_plan(1, 8, 128, 7136, H100)
+    assert (deep.splits, deep.keys_per_cta, deep.stages) == (8, 896, 4)
+    with pytest.raises(registry.KernelTileError):
+        tpa.attention_plan(1, 8, 128, 40_000, H100)
+
+
+def test_kernel_wrappers_refuse_exactly_what_the_kernels_cannot_take():
+    """The wrappers' checks (plain Python, run here on CPU tensors)."""
+    x = torch.zeros((3, 64), dtype=torch.int8)
+    for s in range(0, 6):
+        for n in (8, 16, 24, 32, 48, 100, 128):
+            planes = torch.zeros((s, 64, n), dtype=torch.int8)
+            if 1 <= s <= 4 and n % 16 == 0:
+                tmvm._check_cuda(x, planes, 2)
+            else:
+                with pytest.raises(registry.KernelTileError):
+                    tmvm._check_cuda(x, planes, 2)
+    with pytest.raises(registry.KernelTileError):      # not int8
+        tmvm._check_cuda(x, torch.zeros((1, 64, 16), dtype=torch.int32), 2)
+    with pytest.raises(registry.KernelTileError):      # K mismatch
+        tmvm._check_cuda(x, torch.zeros((1, 63, 16), dtype=torch.int8), 2)
+    with pytest.raises(registry.KernelTileError):      # shift overflows
+        tmvm._check_cuda(x, torch.zeros((4, 64, 16), dtype=torch.int8), 8)
+
+    def pa_args(hd, q_dtype=torch.bfloat16, pool_dtype=torch.bfloat16):
+        b, s, kvh, g, bs, w = 2, 3, 2, 4, 4, 3
+        table = torch.zeros((b, w), dtype=torch.int32)
+        return (torch.zeros((b, s, kvh, g, hd), dtype=q_dtype),
+                torch.zeros((b, s, kvh, hd), dtype=q_dtype),
+                torch.zeros((b, s, kvh, hd), dtype=q_dtype),
+                torch.zeros((7, bs, kvh, hd), dtype=pool_dtype),
+                torch.zeros((7, bs, kvh, hd), dtype=pool_dtype),
+                table, table.clone(), torch.zeros((b,), dtype=torch.int32))
+
+    for hd in (16, 32, 48, 64, 96, 128, 160, 256, 288, 512):
+        if hd % 32 == 0 and hd <= 256:
+            tpa._check(*pa_args(hd))
+        else:
+            with pytest.raises(registry.KernelTileError):
+                tpa._check(*pa_args(hd))
+    tpa._check(*pa_args(128, torch.float32))
+    with pytest.raises(registry.KernelTileError, match="bfloat16"):
+        tpa._check(*pa_args(128, torch.float32, torch.float32))
+    with pytest.raises(registry.KernelTileError):
+        tpa._check(*pa_args(128, torch.float16))
+
+
+KERNEL_PACKAGES = {"bitslice_mvm": tmvm, "paged_attention": tpa,
+                   "gf2_mvm": tgf2}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_PACKAGES))
+def test_kernel_constants_have_one_owner(name):
+    """The constants a kernel's launch plan shares with its CUDA source
+    are stated once, in ``ops.NVCC_DEFINES``: the build passes each as a
+    ``-D`` macro, the source uses it and defines none of them, and no
+    card's SM count or shared-memory size is written into the port."""
+    ops = KERNEL_PACKAGES[name]
+    src = _build.sources()[name]
+    text = src.read_text()
+    assert _build.defines(src) == tuple(
+        f"-D{k}={v}" for k, v in ops.NVCC_DEFINES.items())
+    assert ops.NVCC_DEFINES
+    # nvcc reads a comma in an option as a list separator
+    assert not any("," in str(v) for v in ops.NVCC_DEFINES.values())
+    for key in ops.NVCC_DEFINES:
+        assert re.search(rf"\b{key}\b", text), key
+        assert not re.search(rf"(constexpr\s+\w+\s+{key}\b|#define\s+{key}\b)",
+                             text), key
+    for path in [src, pathlib.Path(ops.__file__),
+                 pathlib.Path(registry.__file__)]:
+        assert not re.search(r"\b(132|114|1056|232448|227 \* 1024)\b",
+                             _code(path.read_text())), path
+
+
+def _code(text: str) -> str:
+    """``text`` without its comments (C ``//`` and Python ``#``) and
+    docstrings, which may name a card's numbers."""
+    text = re.sub(r'""".*?"""', "", text, flags=re.S)
+    return re.sub(r"(//|#(?!include|if|error|endif|define)).*", "", text)
