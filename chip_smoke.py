@@ -11,10 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one ``nvcc`` per source, all started together.
 3. kernels — holds each hand-written kernel against its plain PyTorch
    version at the main paths' shapes (bitslice MVM at M in {1, 4, 16}
-   and GF(2) MVM bit for bit, paged attention at the serve run's window
-   T=81 and a long one, T=1024, within the stated tolerance and its
-   pools bit for bit), checks that two calls on the same inputs give
-   the same bits (K1/K2 split over K, K3 split over the window), and
+   and both GF(2) MVM entries, int8 and state bytes, bit for bit, paged
+   attention at the serve run's window T=81 and a long one, T=1024,
+   within the stated tolerance and its pools bit for bit), checks that
+   two calls on the same inputs give the same bits, and
    times kernel, plain version and one PyTorch library call that
    computes the same function, beside the card's least time (bound);
    then sums K1's and K2's times over the 7 x 36 projections of a
@@ -28,13 +28,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    backends and compares their logits.
 5. serve int8 — the same run with ``int8`` weights.
 6. aes — ``repro_torch.launch.aes.main`` at 2^24 blocks (256 MiB of
-   plaintext) for AES-128, -192 and -256: the bulk cipher through K4,
-   its ciphertext against the numpy oracle on 65 536 strided blocks,
-   decrypt(encrypt(x)) == x on every block, exactly Nr (Nr - 1) K4
-   launches per encrypt (decrypt) call, the gate-accurate DCE path on
-   256 blocks equal to the bulk ciphertext, the FIPS-197 vectors
-   through every path on the card, and the card's busy share over one
-   bulk encryption under the profiler.
+   plaintext) for AES-128, -192 and -256: the bulk cipher through K4's
+   state-byte entry, its ciphertext against the numpy oracle on 65 536
+   strided blocks, decrypt(encrypt(x)) == x on every block, exactly Nr
+   (Nr - 1) launches of that entry per encrypt (decrypt) call, the
+   JAX app's bit-unpacked rounds through K4's int8 entry (Nr launches)
+   equal on every block, the gate-accurate DCE path on 256 blocks equal
+   to the bulk ciphertext, the FIPS-197 vectors through every path on
+   the card, the card's busy share over one bulk encryption under the
+   profiler, and (AES-128) the device time of each op of one round.
 7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change).
@@ -402,26 +404,54 @@ def check_attention(dev, gpu_name: str) -> dict:
     return row
 
 
-GF2_SHAPES = [(128, 128), (200, 129), (64, 32), (512, 48), (1000, 129)]
+GF2_SHAPES = [(128, 128), (200, 129), (64, 32), (48, 16), (512, 48),
+              (1000, 129)]
 GF2_ROWS = [1, 7, 130, 4096]
 AES_BLOCKS = 1 << 24
 GF2_PLAIN_CHUNK = 1 << 22        # rows per plain call in the big check
 
 
-def check_gf2(dev, gpu_name: str) -> dict:
-    """K4 bit for bit against its plain version at the card tests'
-    shapes and at the AES shape (M = 2^24 blocks, K = N = 128, the
-    cipher's ShiftRows∘MixColumns matrix), timed there beside its
-    bound, the plain version and ``torch._int_mm`` + ``& 1``."""
+def _gf2_max_err(got, want) -> int:
+    import torch
+    return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
+def _gf2_big_err(fn, plain, *inputs) -> int:
+    """max |kernel - plain| of ``fn`` on full-size inputs, the plain
+    version taken GF2_PLAIN_CHUNK rows at a time."""
+    got = fn(*inputs)
+    return max(_gf2_max_err(got[r0:r0 + GF2_PLAIN_CHUNK],
+                            plain(inputs[0][r0:r0 + GF2_PLAIN_CHUNK],
+                                  *inputs[1:]))
+               for r0 in range(0, inputs[0].shape[0], GF2_PLAIN_CHUNK))
+
+
+def check_gf2(dev, gpu_name: str) -> dict[str, dict]:
+    """K4's two entries bit for bit against their plain versions at the
+    card tests' shapes and at the AES shape (2^24 blocks, the cipher's
+    ShiftRows∘MixColumns matrix), two calls bit-equal, and timed there
+    beside their bounds, the plain versions and ``torch._int_mm`` +
+    ``& 1`` (for the state-byte entry on the unpacked bits: no one
+    PyTorch call computes it)."""
     import torch
     from repro_torch.apps import aes_app
-    from repro_torch.kernels.gf2_mvm import ops
+    from repro_torch.kernels.gf2_mvm import ops, ref
     bw, _, int8_rate = peaks(gpu_name)
     g = torch.Generator(device=dev).manual_seed(4)
+    mats = [torch.as_tensor(m, dtype=torch.int8, device=dev)
+            for m in aes_app._linear_matrices()]
 
-    def max_err(got, x, a) -> int:
-        want = ops.gf2_mvm(x, a, backend="torch")
-        return int((got.to(torch.int32) - want).abs().max())
+    def mvm(x, a):
+        return ops.gf2_mvm(x, a, backend="cuda")
+
+    def packed(s, a):
+        return ops.gf2_mvm_packed(s, a, backend="cuda")
+
+    def plain(x, a):
+        return ops.gf2_mvm(x, a, backend="torch")
+
+    def plain_packed(s, a):
+        return ops.gf2_mvm_packed(s, a, backend="torch")
 
     for k, n in GF2_SHAPES:
         a = torch.randint(0, 2, (k, n), generator=g, device=dev,
@@ -429,35 +459,65 @@ def check_gf2(dev, gpu_name: str) -> dict:
         for m in GF2_ROWS:
             x = torch.randint(-128, 128, (m, k), generator=g, device=dev,
                               dtype=torch.int8)
-            err = max_err(ops.gf2_mvm(x, a, backend="cuda"), x, a)
-            if err:
+            if _gf2_max_err(mvm(x, a), plain(x, a)):
                 raise AssertionError(f"gf2_mvm not bit-exact at M={m} "
                                      f"K={k} N={n}")
+    # the state-byte entry: the three AES matrices and one of any int8
+    # values (only each entry's low bit counts)
+    any_a = torch.randint(-128, 128, (128, 128), generator=g, device=dev,
+                          dtype=torch.int8)
+    for a in mats + [any_a]:
+        for m in GF2_ROWS:
+            s = torch.randint(0, 256, (m, 16), generator=g, device=dev,
+                              dtype=torch.uint8)
+            if _gf2_max_err(packed(s, a), plain_packed(s, a)):
+                raise AssertionError(f"gf2_mvm_packed not bit-exact at "
+                                     f"M={m}")
+
     m, k, n = AES_BLOCKS, 128, 128
-    a = torch.as_tensor(aes_app._linear_matrices()[0], dtype=torch.int8,
-                        device=dev)
+    a = mats[0]
     x = torch.randint(0, 2, (m, k), generator=g, device=dev,
                       dtype=torch.int8)
-    got = ops.gf2_mvm(x, a, backend="cuda")
-    err = max(max_err(got[r0:r0 + GF2_PLAIN_CHUNK],
-                      x[r0:r0 + GF2_PLAIN_CHUNK], a)
-              for r0 in range(0, m, GF2_PLAIN_CHUNK))
-    if err:
-        raise AssertionError(f"gf2_mvm not bit-exact at the AES shape M={m}")
-    del got
-    t = event_ms(lambda: ops.gf2_mvm(x, a, backend="cuda"))
-    plain = event_ms(lambda: ops.gf2_mvm(x, a, backend="torch"), reps=2)
+    err = _gf2_big_err(mvm, plain, x, a)
+    if err or not deterministic(lambda: mvm(x, a)):
+        raise AssertionError(f"gf2_mvm at the AES shape M={m}: max|diff| "
+                             f"{err}, or two calls differ")
+    t = event_ms(lambda: mvm(x, a))
+    p = event_ms(lambda: plain(x, a), reps=2)
     acc = torch._int_mm(x, a)
     mm = event_ms(lambda: torch._int_mm(x, a))
     epi = event_ms(lambda: acc & 1)
     del acc
     bound = max((m * k + k * n + m * n) / bw, 2 * m * k * n / int8_rate) * 1e3
     log(f"gf2_mvm bit-exact at M in {GF2_ROWS} x (K, N) in {GF2_SHAPES} and "
-        f"at M={m} K={k} N={n} | kernel {t:.4f} ms (plain {plain:.4f}, "
-        f"bound {bound:.4f}, {share(bound, t)} of bound) | _int_mm "
-        f"{mm:.4f} ms + & 1 {epi:.4f} ms")
-    return dict(max_abs_err=err, ms=t, plain_ms=plain, bound_ms=bound,
-                bound_by="bytes", library_ms=mm + epi)
+        f"at M={m} K={k} N={n}, two calls bit-equal | kernel {t:.4f} ms "
+        f"(plain {p:.4f}, bound {bound:.4f}, {share(bound, t)} of bound) | "
+        f"_int_mm {mm:.4f} ms + & 1 {epi:.4f} ms")
+    rows = {"gf2_mvm": dict(max_abs_err=err, ms=t, plain_ms=p,
+                            bound_ms=bound, bound_by="bytes",
+                            library_ms=mm + epi)}
+    del x
+
+    s = torch.randint(0, 256, (m, 16), generator=g, device=dev,
+                      dtype=torch.uint8)
+    err = _gf2_big_err(packed, plain_packed, s, a)
+    if err or not deterministic(lambda: packed(s, a)):
+        raise AssertionError(f"gf2_mvm_packed at M={m}: max|diff| {err}, "
+                             f"or two calls differ")
+    t = event_ms(lambda: packed(s, a))
+    p = event_ms(lambda: plain_packed(s, a), reps=2)
+    bits = ref.unpack_bits(s)
+    mm = event_ms(lambda: torch._int_mm(bits, a) & 1)
+    del bits
+    bound = (2 * m * 16 + k * n) / bw * 1e3
+    log(f"gf2_mvm_packed bit-exact at M in {GF2_ROWS} x the 3 AES matrices "
+        f"and an int8 one, and at M={m}, two calls bit-equal | kernel "
+        f"{t:.4f} ms (plain {p:.4f}, bound {bound:.4f}, {share(bound, t)} "
+        f"of bound) | _int_mm + & 1 on the unpacked bits {mm:.4f} ms")
+    rows["gf2_mvm_packed"] = dict(max_abs_err=err, ms=t, plain_ms=p,
+                                  bound_ms=bound, bound_by="bytes",
+                                  library_ms=None)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -654,7 +714,8 @@ FIPS197 = [  # (key, plaintext, ciphertext): Appendix C.1-C.3 and B
 
 def check_fips197(dev) -> None:
     """The FIPS-197 vectors through the numpy oracle, the bulk cipher
-    (K4 and the plain composition) and the DCE path, on the card."""
+    (K4's state-byte entry, its int8 entry between bit unpack and pack,
+    and the plain composition) and the DCE path, on the card."""
     import numpy as np
     from repro_torch.apps import aes_app
 
@@ -674,12 +735,15 @@ def check_fips197(dev) -> None:
             if not np.array_equal(back[0].cpu().numpy(), pt):
                 raise AssertionError(f"FIPS-197 decrypt failed, kernel="
                                      f"{use_kernel}, key {key.tobytes().hex()}")
+        got["bulk bit-unpacked"] = aes_app.aes_encrypt(
+            pt[None], key, use_kernel=True, packed=False,
+            device=dev)[0].cpu().numpy()
         bad = [k for k, v in got.items() if not np.array_equal(v, ct)]
         if bad:
             raise AssertionError(f"FIPS-197 vector of key "
                                  f"{key.tobytes().hex()} failed on {bad}")
     log("aes: FIPS-197 Appendix B and C.1-C.3 equal through the oracle, "
-        "the bulk cipher (K4 and plain) and the DCE path")
+        "the bulk cipher (K4's two entries and plain) and the DCE path")
 
 
 def aes_phase(dev, smi: str) -> dict[str, int]:
@@ -698,25 +762,29 @@ def aes_phase(dev, smi: str) -> dict[str, int]:
         torch.cuda.synchronize()
         counts = dict(registry.LAUNCHES)
         nr = res["rounds"]
-        # warm-up and timed call each encrypt (Nr) and decrypt (Nr - 1)
-        want = {"gf2_mvm": 2 * (2 * nr - 1)}
-        if (res["encrypt_launches"], res["decrypt_launches"]) != (nr, nr - 1) \
-                or counts != want:
+        # warm-up and timed call each: encrypt (Nr) and decrypt (Nr - 1)
+        # on the state-byte entry, and one encrypt through the bit-unpacked
+        # rounds on the int8 entry (Nr)
+        want = {"gf2_mvm_packed": 2 * (2 * nr - 1), "gf2_mvm": 2 * nr}
+        got = (res["encrypt_launches"], res["decrypt_launches"],
+               res["bits_launches"])
+        if got != (nr, nr - 1, nr) or counts != want:
             raise AssertionError(
-                f"AES-{8 * key_bytes}: K4 launches encrypt "
-                f"{res['encrypt_launches']} decrypt "
-                f"{res['decrypt_launches']} (want {nr}, {nr - 1}); run "
-                f"{counts}, want {want}")
+                f"AES-{8 * key_bytes}: K4 launches encrypt / decrypt / "
+                f"bit-unpacked encrypt {got} (want {nr}, {nr - 1}, {nr}); "
+                f"run {counts}, want {want}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         gates = res["gates"]
         log(f"aes AES-{8 * key_bytes}: {AES_BLOCKS} blocks, "
             f"encrypt_MB_per_s={res['encrypt_mb_per_s']:.1f} "
             f"decrypt_MB_per_s={res['decrypt_mb_per_s']:.1f} on {smi}; "
+            f"bit-unpacked rounds {res['bits_encrypt_mb_per_s']:.1f} MB/s; "
             f"oracle equal on {res['oracle_blocks']} strided blocks, "
-            f"round trip equal on every block, K4 launches {nr} / {nr - 1} "
-            f"per encrypt / decrypt; DCE path on {res['dce_blocks']} blocks "
-            f"equal, {gates.nor} NOR + {gates.copy} copy primitives")
+            f"round trip and bit-unpacked rounds equal on every block, K4 "
+            f"launches {nr} / {nr - 1} per encrypt / decrypt; DCE path on "
+            f"{res['dce_blocks']} blocks equal, {gates.nor} NOR + "
+            f"{gates.copy} copy primitives")
         pt, key = res["pt"], res["key"]
         del res
         prof = profiled(lambda: aes_app.aes_encrypt(pt, key, use_kernel=True,
@@ -729,11 +797,37 @@ def aes_phase(dev, smi: str) -> dict[str, int]:
             log(f"profile aes-{8 * key_bytes}: one bulk encryption, wall "
                 f"{wall:.3f} s under the profiler, kernels {busy:.3f} s "
                 f"({100 * busy / wall:.1f} % busy); top: {top}")
+        if key_bytes == 16:
+            aes_round_split(pt, key, dev)
         del pt
         gc.collect()
         torch.cuda.empty_cache()
     check_fips197(dev)
     return launches
+
+
+def aes_round_split(pt, key, dev) -> None:
+    """Device time of each op of one encrypt round (round 1) at the run's
+    block count, each timed alone between CUDA events."""
+    import torch
+    from repro_torch.apps import aes_app
+    from repro_torch.kernels.gf2_mvm import ops
+    rks, (m_lin, _, _) = aes_app._consts(key, dev)
+    sbox = torch.as_tensor(aes_app.SBOX, device=dev)
+    s = pt ^ rks[0]
+    idx = s.long()
+    sub = sbox[idx]
+    lin = ops.gf2_mvm_packed(sub, m_lin)
+    parts = {"index s.long()": event_ms(lambda: s.long()),
+             "S-box gather sbox[idx]": event_ms(lambda: sbox[idx]),
+             "K4 gf2_mvm_packed": event_ms(
+                 lambda: ops.gf2_mvm_packed(sub, m_lin)),
+             "round-key XOR": event_ms(lambda: lin ^ rks[1])}
+    total = sum(parts.values())
+    log(f"aes round split at {pt.shape[0]} blocks (round 1, each op timed "
+        f"alone): " + ", ".join(f"{k} {v:.4f} ms ({100 * v / total:.1f} %)"
+                                for k, v in parts.items())
+        + f"; sum {total:.4f} ms")
 
 
 KERNELS = {
@@ -751,6 +845,10 @@ KERNELS = {
                "paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:113"),
     "gf2_mvm": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/gf2_mvm/csrc/gf2_mvm.cu",
+        replaces="src/repro/kernels/gf2_mvm/kernel.py:41"),
+    "gf2_mvm_packed": dict(
         route="cuda",
         source="src/repro_torch/kernels/gf2_mvm/csrc/gf2_mvm.cu",
         replaces="src/repro/kernels/gf2_mvm/kernel.py:41"),
@@ -795,7 +893,7 @@ def main(argv=None) -> int:
     # -- 3. kernels
     rows = check_mvm(dev, gpu_name)
     rows["paged_attention"] = check_attention(dev, gpu_name)
-    rows["gf2_mvm"] = check_gf2(dev, gpu_name)
+    rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
         return 0

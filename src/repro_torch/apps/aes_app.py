@@ -6,8 +6,10 @@ run in the DCE; MixColumns (3) runs in the ACE as a binary MVM with
 
 ShiftRows ∘ MixColumns is GF(2)-*linear* on the whole 128-bit state, so
 one 128x128 binary matrix ``M_LIN`` (built from the AES definition)
-implements both steps as a single parity MVM, executed by the
-``gf2_mvm`` kernel (its parity epilogue is the 1-bit ADC read-out).
+implements both steps as a single parity MVM, executed by K4's
+state-byte entry ``gf2_mvm_packed`` (the MVM on the state's bits, its
+parity epilogue the 1-bit ADC read-out), which takes and returns the
+state bytes.
 SubBytes is the paper's element-wise load against an S-box pipeline;
 AddRoundKey is a DCE XOR.
 
@@ -32,7 +34,10 @@ import torch
 from repro_torch.config import ADCConfig, NoiseConfig
 from repro_torch.core import analog, digital
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gf2_mvm import gf2_mvm, gf2_mvm_ref
+from repro_torch.kernels.gf2_mvm import (gf2_mvm, gf2_mvm_packed,
+                                         gf2_mvm_packed_ref)
+from repro_torch.kernels.gf2_mvm import pack_bits as _pack_bits
+from repro_torch.kernels.gf2_mvm import unpack_bits as _unpack_bits
 
 # ---------------------------------------------------------------------------
 # GF(2^8) arithmetic + S-box construction (no magic tables: derived)
@@ -201,27 +206,17 @@ def aes_decrypt_np(ct: np.ndarray, key: np.ndarray) -> np.ndarray:
 # Bulk cipher (the DARTH-PUM mapping, vectorised over blocks)
 # ---------------------------------------------------------------------------
 
-def _unpack_bits(b: torch.Tensor) -> torch.Tensor:
-    """[..., 16] uint8 -> [..., 128] int8 bits (byte-major, LSB-first)."""
-    shifts = torch.arange(8, dtype=torch.uint8, device=b.device)
-    bits = (b[..., None] >> shifts) & 1
-    return bits.reshape(tuple(b.shape[:-1]) + (128,)).to(torch.int8)
-
-
-def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """[..., 128] {0,1} -> [..., 16] uint8."""
-    bits = bits.reshape(tuple(bits.shape[:-1]) + (16, 8)).to(torch.uint8)
-    weights = torch.ones(8, dtype=torch.uint8, device=bits.device) \
-        << torch.arange(8, dtype=torch.uint8, device=bits.device)
-    # torch.sum promotes uint8 to int64; the sum is at most 255
-    return torch.sum(bits * weights, dim=-1).to(torch.uint8)
-
-
-def _gf2_apply(bits: torch.Tensor, mat: torch.Tensor,
-               use_kernel: bool) -> torch.Tensor:
-    if use_kernel:
-        return gf2_mvm(bits, mat)
-    return gf2_mvm_ref(bits, mat)          # the plain composition
+def _gf2_apply(s: torch.Tensor, mat: torch.Tensor, use_kernel: bool,
+               packed: bool) -> torch.Tensor:
+    """The ACE's binary MVM on [..., 16] state bytes: K4's state-byte
+    entry; with ``packed=False`` K4's int8 entry between the bit unpack
+    and pack, as the JAX app composes the round; without ``use_kernel``
+    the plain composition."""
+    if not use_kernel:
+        return gf2_mvm_packed_ref(s, mat)
+    if packed:
+        return gf2_mvm_packed(s, mat)
+    return _pack_bits(gf2_mvm(_unpack_bits(s), mat))
 
 
 def _state(x, dev: torch.device) -> torch.Tensor:
@@ -236,11 +231,15 @@ def _consts(key, dev: torch.device):
                  for m in _linear_matrices()]
 
 
-def aes_encrypt(pt, key, *, use_kernel: bool = False,
+def aes_encrypt(pt, key, *, use_kernel: bool = False, packed: bool = True,
                 device: str | torch.device = "cuda") -> torch.Tensor:
     """Encrypt a batch of 16-byte blocks. pt: [..., 16] uint8 (numpy or
     torch); returns uint8 on ``device``.  The rounds are a Python loop
-    over round keys kept on the device: no host sync inside."""
+    over round keys kept on the device: no host sync inside.
+    ``use_kernel`` runs the GF(2) layer on K4, on state bytes unless
+    ``packed=False``: then as the JAX app composes the round, through K4's
+    int8 entry between the bit unpack and pack (``launch/aes.py`` times
+    both)."""
     dev = resolve_device(device)
     rks, (m_lin, m_shift, _) = _consts(key, dev)
     sbox = torch.as_tensor(SBOX, device=dev)
@@ -248,16 +247,16 @@ def aes_encrypt(pt, key, *, use_kernel: bool = False,
     s = _state(pt, dev) ^ rks[0]
     for r in range(1, rounds):
         s = sbox[s.long()]                            # DCE element-wise load
-        bits = _gf2_apply(_unpack_bits(s), m_lin, use_kernel)  # ACE: SR∘MC
-        s = _pack_bits(bits) ^ rks[r]                 # DCE XOR
+        s = _gf2_apply(s, m_lin, use_kernel, packed)  # ACE: ShiftRows∘MixCols
+        s = s ^ rks[r]                                # DCE XOR
     s = sbox[s.long()]
-    bits = _gf2_apply(_unpack_bits(s), m_shift, use_kernel)
-    return _pack_bits(bits) ^ rks[rounds]
+    return _gf2_apply(s, m_shift, use_kernel, packed) ^ rks[rounds]
 
 
 def aes_decrypt(ct, key, *, use_kernel: bool = False,
                 device: str | torch.device = "cuda") -> torch.Tensor:
-    """Decrypt a batch of 16-byte blocks (the inverse of ``aes_encrypt``)."""
+    """Decrypt a batch of 16-byte blocks (the inverse of ``aes_encrypt``;
+    ``use_kernel`` runs the GF(2) layer on K4's state-byte entry)."""
     dev = resolve_device(device)
     rks, (_, _, m_invmix) = _consts(key, dev)
     inv_sbox = torch.as_tensor(INV_SBOX, device=dev)
@@ -268,7 +267,7 @@ def aes_decrypt(ct, key, *, use_kernel: bool = False,
         r = rounds - 1 - i
         s = inv_sbox[s[..., inv_perm].long()]
         s = s ^ rks[r]
-        s = _pack_bits(_gf2_apply(_unpack_bits(s), m_invmix, use_kernel))
+        s = _gf2_apply(s, m_invmix, use_kernel, packed=True)
     s = inv_sbox[s[..., inv_perm].long()]
     return s ^ rks[0]
 

@@ -402,7 +402,17 @@ class ContinuousBatchingScheduler:
                 if pending:
                     step = max(step + 1, pending[0].arrival)
                     continue
-                break
+                if not ready:
+                    break
+                # admitted requests that all finished at prefill freed
+                # their slots for ``ready``: admit on the next tick.  Here
+                # nothing is live (no prefill, no slot decoding), so a
+                # head that cannot be funded now never will be
+                if not self.can_fund(ready[0]):
+                    raise SchedulerStalled(
+                        f"request {ready[0].rid} can never be funded: "
+                        f"{self._alloc.free_blocks} KV blocks free, "
+                        f"{self._blocks_for(ready[0])} needed")
             step += 1
         return out
 

@@ -95,3 +95,19 @@ def test_dce_path_equals_jax_with_equal_gate_counts(klen):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, taes.aes_encrypt_np(pts, key))
     assert (tc.nor, tc.copy) == (jc.nor, jc.copy)
+
+
+@pytest.mark.parametrize("klen", [16, 24, 32])
+def test_bit_unpacked_rounds_equal_jax(klen):
+    """``packed=False`` runs the round as the JAX app composes it (bit
+    unpack, the int8 entry, bit pack): the same ciphertext as JAX's
+    kernel path and the state-byte path."""
+    rng = np.random.default_rng(100 + klen)
+    pts = rng.integers(0, 256, size=(2, 9, 16), dtype=np.uint8)
+    key = rng.integers(0, 256, size=(klen,), dtype=np.uint8)
+    want = np.asarray(jaes.aes_encrypt(pts, key, use_kernel=True))
+    got = taes.aes_encrypt(torch.from_numpy(pts), key, use_kernel=True,
+                           packed=False, **CPU)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        taes.aes_encrypt(pts, key, use_kernel=True, **CPU).numpy(), want)

@@ -295,10 +295,11 @@ def test_kernels_on_two_streams_at_once(dev):
 
 
 @pytest.mark.cuda
-# K = 512 is the longest K the register-resident kernel takes; K = 1000
-# runs the long-K kernel
+# K = 512 is the longest K the tensor-core kernel takes; K = 1000 runs
+# the long-K kernel; K = 200 and N = 129 take the byte copies; K = 48
+# leaves half of the mma's last 32-byte K step to the zero padding
 @pytest.mark.parametrize("k,n", [(128, 128), (200, 129), (64, 32),
-                                 (512, 48), (1000, 129)])
+                                 (48, 16), (512, 48), (1000, 129)])
 @pytest.mark.parametrize("m", [1, 7, 130, 4096])
 def test_gf2_mvm_kernel_bit_exact(dev, m, k, n):
     rng = np.random.default_rng(m * 1000 + k + n)
@@ -312,6 +313,7 @@ def test_gf2_mvm_kernel_bit_exact(dev, m, k, n):
     assert registry.LAUNCHES == {"gf2_mvm": 1}
     assert got.dtype == torch.int8 and got.shape == (m, n)
     assert torch.equal(got, want)
+    assert torch.equal(gf2.gf2_mvm(x, a), got)        # two calls bit-equal
     # only each byte's low bit counts: any int8 values give the parity of
     # the integer product
     xw = torch.from_numpy(rng.integers(-128, 128, size=(2, m, k)).astype(
@@ -331,3 +333,79 @@ def test_gf2_mvm_rejects_what_it_cannot_take(dev):
         gf2.gf2_mvm(x, a.to(torch.int32))
     with pytest.raises(registry.KernelTileError, match="on"):
         gf2.gf2_mvm(x, a.cpu())
+
+
+def _aes_matrix(i):
+    from repro_torch.apps import aes_app
+    return torch.as_tensor(aes_app._linear_matrices()[i], dtype=torch.int8)
+
+
+@pytest.mark.cuda
+# the AES matrices (ShiftRows∘MixColumns, ShiftRows, InvMixColumns) and
+# one of any int8 values, of which only each entry's low bit counts
+@pytest.mark.parametrize("mat", [0, 1, 2, "int8"])
+@pytest.mark.parametrize("m", [1, 7, 130, 4096])
+def test_gf2_mvm_packed_kernel_bit_exact(dev, m, mat):
+    rng = np.random.default_rng(m + 17 * len(str(mat)))
+    a = (torch.from_numpy(rng.integers(-128, 128, size=(128, 128)).astype(
+        np.int8)) if mat == "int8" else _aes_matrix(mat)).to(dev)
+    s = torch.from_numpy(rng.integers(0, 256, size=(m, 16)).astype(
+        np.uint8)).to(dev)
+    registry.reset_launches()
+    got = gf2.gf2_mvm_packed(s, a)
+    want = gf2.gf2_mvm_packed(s, a, backend="torch")
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"gf2_mvm_packed": 1}
+    assert got.dtype == torch.uint8 and got.shape == (m, 16)
+    assert torch.equal(got, want)
+    assert torch.equal(gf2.gf2_mvm_packed(s, a), got)   # two calls bit-equal
+    # leading dims, and rows that do not start on a 16-byte boundary
+    base = torch.empty(m * 16 + 1, dtype=torch.uint8, device=dev)
+    base[1:] = s.reshape(-1)
+    odd = base[1:].view(m, 16)
+    assert odd.data_ptr() % 16
+    assert torch.equal(gf2.gf2_mvm_packed(odd, a), want)
+    assert torch.equal(gf2.gf2_mvm_packed(s.reshape(1, m, 16), a)[0], want)
+
+
+@pytest.mark.cuda
+def test_gf2_mvm_packed_rejects_what_it_cannot_take(dev):
+    s = torch.zeros((4, 16), dtype=torch.uint8, device=dev)
+    a = torch.zeros((128, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(registry.KernelTileError, match="uint8"):
+        gf2.gf2_mvm_packed(s.to(torch.int8), a)
+    with pytest.raises(registry.KernelTileError, match="int8"):
+        gf2.gf2_mvm_packed(s, a.to(torch.int32))
+    with pytest.raises(registry.KernelTileError, match="128x128"):
+        gf2.gf2_mvm_packed(s, a[:64])
+    with pytest.raises(registry.KernelTileError, match="128x128"):
+        gf2.gf2_mvm_packed(s[:, :8], a)
+    with pytest.raises(registry.KernelTileError, match="on"):
+        gf2.gf2_mvm_packed(s, a.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("klen", [16, 24, 32])
+def test_aes_rounds_launch_the_state_byte_entry(dev, klen):
+    """With ``use_kernel`` the bulk cipher launches K4's state-byte entry
+    once a round (Nr to encrypt, Nr - 1 to decrypt) and never its int8
+    entry; the bit-unpacked rounds launch the int8 entry Nr times; all
+    equal the numpy oracle."""
+    from repro_torch.apps import aes_app
+    rng = np.random.default_rng(klen)
+    pt = rng.integers(0, 256, size=(1000, 16), dtype=np.uint8)
+    key = rng.integers(0, 256, size=(klen,), dtype=np.uint8)
+    nr = {16: 10, 24: 12, 32: 14}[klen]
+    registry.reset_launches()
+    ct = aes_app.aes_encrypt(pt, key, use_kernel=True, device=dev)
+    assert registry.LAUNCHES == {"gf2_mvm_packed": nr}
+    back = aes_app.aes_decrypt(ct, key, use_kernel=True, device=dev)
+    assert registry.LAUNCHES == {"gf2_mvm_packed": 2 * nr - 1}
+    registry.reset_launches()
+    bits = aes_app.aes_encrypt(pt, key, use_kernel=True, packed=False,
+                               device=dev)
+    assert registry.LAUNCHES == {"gf2_mvm": nr}
+    want = aes_app.aes_encrypt_np(pt, key)
+    np.testing.assert_array_equal(ct.cpu().numpy(), want)
+    np.testing.assert_array_equal(bits.cpu().numpy(), want)
+    np.testing.assert_array_equal(back.cpu().numpy(), pt)

@@ -339,6 +339,42 @@ def test_attention_plan_at_the_served_shapes():
         tpa.attention_plan(1, 8, 128, 40_000, H100)
 
 
+SMALL = registry.DeviceProps(sms=16, max_smem=48 * 1024, max_threads=1024)
+
+
+@pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("k", [1, 16, 32, 100, 128, 200, 256, 384, 512])
+def test_gf2_plan_lays_out_disjoint_regions_that_fit(k, props):
+    """The tensor-core K4 kernel's shared memory: the ring of row tiles,
+    a's transposed tile and the output tile, disjoint and within the
+    card's limit; rows hold K padded to the mma's 32-byte steps plus
+    ROW_PAD bytes, which keeps them 16-byte aligned and puts the 8 rows
+    of a fragment load on 8 different groups of 4 banks."""
+    plan = tgf2.gf2_plan(k, props)
+    assert plan.stages in (2, tgf2.MAX_STAGES)
+    kp = -(-k // 32) * 32
+    assert plan.row == kp + tgf2.ROW_PAD
+    assert plan.row % 16 == 0 and (plan.row // 4) % 8 == 4
+    assert plan.a_off == plan.stages * tgf2.TILE_M * plan.row
+    assert plan.out_off == plan.a_off + tgf2.TILE_N * plan.row
+    assert plan.smem == plan.out_off + tgf2.TILE_M * (tgf2.TILE_N
+                                                      + tgf2.ROW_PAD)
+    assert plan.smem <= props.max_smem
+    # the deepest ring that fits
+    if plan.stages < tgf2.MAX_STAGES:
+        deeper = (tgf2.MAX_STAGES - plan.stages) * tgf2.TILE_M * plan.row
+        assert plan.smem + deeper > props.max_smem
+
+
+def test_gf2_plan_long_k_and_small_cards():
+    assert tgf2.gf2_plan(128, H100).stages == tgf2.MAX_STAGES
+    assert tgf2.gf2_plan(512, H100).stages == 2
+    assert tgf2.gf2_plan(tgf2.MAX_MMA_K + 1, H100) == (0, 0, 0, 0, 0)
+    assert tgf2.gf2_plan(64, SMALL).smem <= SMALL.max_smem
+    with pytest.raises(registry.KernelTileError, match="shared bytes"):
+        tgf2.gf2_plan(512, SMALL)
+
+
 def test_kernel_wrappers_refuse_exactly_what_the_kernels_cannot_take():
     """The wrappers' checks (plain Python, run here on CPU tensors)."""
     x = torch.zeros((3, 64), dtype=torch.int8)

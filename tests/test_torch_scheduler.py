@@ -26,6 +26,7 @@ from repro_torch.config import PUMConfig as TPUM, small_test_config as tsmall
 from repro_torch.kernels import registry
 from repro_torch.serve import (ContinuousBatchingScheduler, Request,
                                oracle_completion)
+from repro_torch.serve.scheduler import SchedulerStalled
 
 # f32 logits: integer contractions are exact on equal inputs, the rest
 # differs by f32 summation order (~1e-7 at this size)
@@ -187,3 +188,40 @@ def test_port_scheduler_eos_frees_slot(ref):
     assert out[0].tokens == solo[:solo.index(eos) + 1]
     assert out[1].tokens == oracle_completion(sched.engine, reqs[1])
     assert out[1].admitted_step >= out[0].finished_step
+
+
+# every slot finishes at prefill (max_tokens=1) on a tick that decodes
+# nothing while rid 4 still waits in the ready queue
+STRANDED = [([5, 6, 7], 2, 0), ([1, 2], 2, 0), ([3], 1, 1), ([4], 1, 1),
+            ([8], 2, 1)]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_port_scheduler_serves_every_ready_request(ref, chunked):
+    """A tick that decodes nothing, with no prefill live and nothing
+    pending, must not end the run while requests wait to be admitted:
+    every rid comes back, equal to its solo oracle (not to JAX's ``run``,
+    which drops the last one)."""
+    sched = ContinuousBatchingScheduler(
+        ref["tcfg"], ref["params"], device="cpu", num_slots=2, max_len=24,
+        kv_block_size=1, chunked_prefill=chunked)
+    out = sched.run([Request(p, m, arrival=a) for p, m, a in STRANDED])
+    assert sorted(out) == list(range(len(STRANDED)))
+    for rid, (prompt, max_tokens, _) in enumerate(STRANDED):
+        assert out[rid].tokens == oracle_completion(
+            sched.engine, Request(prompt, max_tokens))
+    assert sched._alloc.free_blocks == sched.num_kv_blocks    # no leaks
+
+
+def test_port_scheduler_raises_on_a_request_never_funded(ref):
+    """With every KV block held outside the scheduler and nothing live,
+    the head of the ready queue can never be admitted: ``run`` raises
+    instead of spinning (no tick dispatches, so its step budget would
+    never run out)."""
+    sched = ContinuousBatchingScheduler(
+        ref["tcfg"], ref["params"], device="cpu", num_slots=2, max_len=24,
+        kv_block_size=4)
+    held = sched._alloc.alloc(sched.num_kv_blocks - 1)
+    assert held is not None
+    with pytest.raises(SchedulerStalled, match="never be funded"):
+        sched.run([Request([1, 2, 3], 3), Request([4, 5], 2)])
