@@ -31,13 +31,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plaintext) for AES-128, -192 and -256: the bulk cipher through K4's
    state-byte entry, its ciphertext against the numpy oracle on 65 536
    strided blocks, decrypt(encrypt(x)) == x on every block, exactly Nr
-   (Nr - 1) launches of that entry per encrypt (decrypt) call, the
-   JAX app's bit-unpacked rounds through K4's int8 entry (Nr launches)
-   equal on every block, the gate-accurate DCE path on 256 blocks equal
+   (Nr - 1) launches of that entry per encrypt (decrypt) call and none
+   of K4's int8 entry, the gate-accurate DCE path on 256 blocks equal
    to the bulk ciphertext, the FIPS-197 vectors through every path on
    the card, the card's busy share over one bulk encryption under the
    profiler, and (AES-128) the device time of each op of one round.
 7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-6) must have launched there;
+   K4's int8 entry is on none of them (its ``launches`` is 0, and any
+   launch there fails the run): phase 3 holds it against its plain
+   version.
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change).
 """
@@ -714,8 +717,8 @@ FIPS197 = [  # (key, plaintext, ciphertext): Appendix C.1-C.3 and B
 
 def check_fips197(dev) -> None:
     """The FIPS-197 vectors through the numpy oracle, the bulk cipher
-    (K4's state-byte entry, its int8 entry between bit unpack and pack,
-    and the plain composition) and the DCE path, on the card."""
+    (K4's state-byte entry and the plain composition) and the DCE path,
+    on the card."""
     import numpy as np
     from repro_torch.apps import aes_app
 
@@ -735,15 +738,13 @@ def check_fips197(dev) -> None:
             if not np.array_equal(back[0].cpu().numpy(), pt):
                 raise AssertionError(f"FIPS-197 decrypt failed, kernel="
                                      f"{use_kernel}, key {key.tobytes().hex()}")
-        got["bulk bit-unpacked"] = aes_app.aes_encrypt(
-            pt[None], key, use_kernel=True, packed=False,
-            device=dev)[0].cpu().numpy()
         bad = [k for k, v in got.items() if not np.array_equal(v, ct)]
         if bad:
             raise AssertionError(f"FIPS-197 vector of key "
                                  f"{key.tobytes().hex()} failed on {bad}")
     log("aes: FIPS-197 Appendix B and C.1-C.3 equal through the oracle, "
-        "the bulk cipher (K4's two entries and plain) and the DCE path")
+        "the bulk cipher (K4's state-byte entry and plain) and the DCE "
+        "path")
 
 
 def aes_phase(dev, smi: str) -> dict[str, int]:
@@ -763,26 +764,22 @@ def aes_phase(dev, smi: str) -> dict[str, int]:
         counts = dict(registry.LAUNCHES)
         nr = res["rounds"]
         # warm-up and timed call each: encrypt (Nr) and decrypt (Nr - 1)
-        # on the state-byte entry, and one encrypt through the bit-unpacked
-        # rounds on the int8 entry (Nr)
-        want = {"gf2_mvm_packed": 2 * (2 * nr - 1), "gf2_mvm": 2 * nr}
-        got = (res["encrypt_launches"], res["decrypt_launches"],
-               res["bits_launches"])
-        if got != (nr, nr - 1, nr) or counts != want:
+        # on the state-byte entry, and nothing else
+        want = {"gf2_mvm_packed": 2 * (2 * nr - 1)}
+        got = (res["encrypt_launches"], res["decrypt_launches"])
+        if got != (nr, nr - 1) or counts != want:
             raise AssertionError(
-                f"AES-{8 * key_bytes}: K4 launches encrypt / decrypt / "
-                f"bit-unpacked encrypt {got} (want {nr}, {nr - 1}, {nr}); "
-                f"run {counts}, want {want}")
+                f"AES-{8 * key_bytes}: K4 launches encrypt / decrypt "
+                f"{got} (want {nr}, {nr - 1}); run {counts}, want {want}")
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         gates = res["gates"]
         log(f"aes AES-{8 * key_bytes}: {AES_BLOCKS} blocks, "
             f"encrypt_MB_per_s={res['encrypt_mb_per_s']:.1f} "
             f"decrypt_MB_per_s={res['decrypt_mb_per_s']:.1f} on {smi}; "
-            f"bit-unpacked rounds {res['bits_encrypt_mb_per_s']:.1f} MB/s; "
             f"oracle equal on {res['oracle_blocks']} strided blocks, "
-            f"round trip and bit-unpacked rounds equal on every block, K4 "
-            f"launches {nr} / {nr - 1} per encrypt / decrypt; DCE path on "
+            f"round trip equal on every block, K4 launches {nr} / {nr - 1} "
+            f"per encrypt / decrypt; DCE path on "
             f"{res['dce_blocks']} blocks equal, {gates.nor} NOR + "
             f"{gates.copy} copy primitives")
         pt, key = res["pt"], res["key"]
@@ -853,6 +850,9 @@ KERNELS = {
         source="src/repro_torch/kernels/gf2_mvm/csrc/gf2_mvm.cu",
         replaces="src/repro/kernels/gf2_mvm/kernel.py:41"),
 }
+# held against its plain version in phase 3 only: the AES rounds run the
+# state-byte entry, and no other path calls K4's int8 entry
+OFF_MAIN_PATH = {"gf2_mvm"}
 
 
 def main(argv=None) -> int:
@@ -907,9 +907,14 @@ def main(argv=None) -> int:
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)
-        if n <= 0:
+        main_path = name not in OFF_MAIN_PATH
+        if main_path and n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-        out.append({"name": name, **meta, "launches": n, **rows[name]})
+        if not main_path and n:
+            raise AssertionError(f"{name} launched {n} times on the main "
+                                 f"path, which should not call it")
+        out.append({"name": name, **meta, "launches": n,
+                    "main_path": main_path, **rows[name]})
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu_name,

@@ -34,8 +34,7 @@ import torch
 from repro_torch.config import ADCConfig, NoiseConfig
 from repro_torch.core import analog, digital
 from repro_torch.device import resolve_device
-from repro_torch.kernels.gf2_mvm import (gf2_mvm, gf2_mvm_packed,
-                                         gf2_mvm_packed_ref)
+from repro_torch.kernels.gf2_mvm import gf2_mvm_packed, gf2_mvm_packed_ref
 from repro_torch.kernels.gf2_mvm import pack_bits as _pack_bits
 from repro_torch.kernels.gf2_mvm import unpack_bits as _unpack_bits
 
@@ -206,17 +205,13 @@ def aes_decrypt_np(ct: np.ndarray, key: np.ndarray) -> np.ndarray:
 # Bulk cipher (the DARTH-PUM mapping, vectorised over blocks)
 # ---------------------------------------------------------------------------
 
-def _gf2_apply(s: torch.Tensor, mat: torch.Tensor, use_kernel: bool,
-               packed: bool) -> torch.Tensor:
+def _gf2_apply(s: torch.Tensor, mat: torch.Tensor,
+               use_kernel: bool) -> torch.Tensor:
     """The ACE's binary MVM on [..., 16] state bytes: K4's state-byte
-    entry; with ``packed=False`` K4's int8 entry between the bit unpack
-    and pack, as the JAX app composes the round; without ``use_kernel``
-    the plain composition."""
-    if not use_kernel:
-        return gf2_mvm_packed_ref(s, mat)
-    if packed:
+    entry, or without ``use_kernel`` the plain composition."""
+    if use_kernel:
         return gf2_mvm_packed(s, mat)
-    return _pack_bits(gf2_mvm(_unpack_bits(s), mat))
+    return gf2_mvm_packed_ref(s, mat)
 
 
 def _state(x, dev: torch.device) -> torch.Tensor:
@@ -231,15 +226,12 @@ def _consts(key, dev: torch.device):
                  for m in _linear_matrices()]
 
 
-def aes_encrypt(pt, key, *, use_kernel: bool = False, packed: bool = True,
+def aes_encrypt(pt, key, *, use_kernel: bool = False,
                 device: str | torch.device = "cuda") -> torch.Tensor:
     """Encrypt a batch of 16-byte blocks. pt: [..., 16] uint8 (numpy or
     torch); returns uint8 on ``device``.  The rounds are a Python loop
     over round keys kept on the device: no host sync inside.
-    ``use_kernel`` runs the GF(2) layer on K4, on state bytes unless
-    ``packed=False``: then as the JAX app composes the round, through K4's
-    int8 entry between the bit unpack and pack (``launch/aes.py`` times
-    both)."""
+    ``use_kernel`` runs the GF(2) layer on K4's state-byte entry."""
     dev = resolve_device(device)
     rks, (m_lin, m_shift, _) = _consts(key, dev)
     sbox = torch.as_tensor(SBOX, device=dev)
@@ -247,10 +239,10 @@ def aes_encrypt(pt, key, *, use_kernel: bool = False, packed: bool = True,
     s = _state(pt, dev) ^ rks[0]
     for r in range(1, rounds):
         s = sbox[s.long()]                            # DCE element-wise load
-        s = _gf2_apply(s, m_lin, use_kernel, packed)  # ACE: ShiftRows∘MixCols
+        s = _gf2_apply(s, m_lin, use_kernel)          # ACE: ShiftRows∘MixCols
         s = s ^ rks[r]                                # DCE XOR
     s = sbox[s.long()]
-    return _gf2_apply(s, m_shift, use_kernel, packed) ^ rks[rounds]
+    return _gf2_apply(s, m_shift, use_kernel) ^ rks[rounds]
 
 
 def aes_decrypt(ct, key, *, use_kernel: bool = False,
@@ -267,7 +259,7 @@ def aes_decrypt(ct, key, *, use_kernel: bool = False,
         r = rounds - 1 - i
         s = inv_sbox[s[..., inv_perm].long()]
         s = s ^ rks[r]
-        s = _gf2_apply(s, m_invmix, use_kernel, packed=True)
+        s = _gf2_apply(s, m_invmix, use_kernel)
     s = inv_sbox[s[..., inv_perm].long()]
     return s ^ rks[0]
 

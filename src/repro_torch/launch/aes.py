@@ -7,9 +7,6 @@ chip-level projection.  On the card by default.
 
 Checks the ciphertext of 65 536 evenly strided blocks against the numpy
 oracle, every block's round trip, and 256 blocks through the DCE path.
-Also encrypts every block through the JAX app's round (bit unpack, K4's
-int8 entry, bit pack), which must give the same ciphertext, and times
-it beside the state-byte entry.
 
 Plaintext and key are random, drawn from ``--seed``.  Prints the bulk
 rates beside the device they ran on (on the card: the name and power
@@ -63,15 +60,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _timed(fn, dev: torch.device, kernel: str = gf2.PACKED_NAME):
-    """(result, seconds, launches of ``kernel``) of one call."""
+def _timed(fn, dev: torch.device):
+    """(result, seconds, launches of K4's state-byte entry) of one call."""
     _sync(dev)
-    before = registry.LAUNCHES[kernel]
+    before = registry.LAUNCHES[gf2.PACKED_NAME]
     t0 = time.perf_counter()
     out = fn()
     _sync(dev)
     return (out, time.perf_counter() - t0,
-            registry.LAUNCHES[kernel] - before)
+            registry.LAUNCHES[gf2.PACKED_NAME] - before)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -87,22 +84,16 @@ def main(argv: list[str] | None = None) -> dict:
                        dtype=torch.uint8)
     rounds = aes_app.key_expansion(key).shape[0] - 1
 
-    # warm-up: loads the kernels and the allocator's pools
+    # warm-up: loads the kernel and the allocator's pools
     aes_app.aes_decrypt(aes_app.aes_encrypt(pt[:256], key, use_kernel=True,
                                             device=dev),
                         key, use_kernel=True, device=dev)
-    aes_app.aes_encrypt(pt[:256], key, use_kernel=True, packed=False,
-                        device=dev)
     ct, enc_s, enc_launches = _timed(lambda: aes_app.aes_encrypt(
         pt, key, use_kernel=True, device=dev), dev)
     back, dec_s, dec_launches = _timed(lambda: aes_app.aes_decrypt(
         ct, key, use_kernel=True, device=dev), dev)
     mb = args.blocks * 16 / 1e6
     roundtrip = bool(torch.equal(back, pt))
-    bits_ct, bits_s, bits_launches = _timed(lambda: aes_app.aes_encrypt(
-        pt, key, use_kernel=True, packed=False, device=dev), dev, gf2.NAME)
-    bits_equal = bool(torch.equal(bits_ct, ct))
-    del bits_ct
 
     stride = max(1, args.blocks // CHECK_BLOCKS)
     idx = torch.arange(0, args.blocks, stride, device=dev)
@@ -121,13 +112,9 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"bulk encrypt {mb / enc_s:.1f} MB/s ({enc_s * 1e3:.3f} ms), "
           f"decrypt {mb / dec_s:.1f} MB/s ({dec_s * 1e3:.3f} ms) on "
           f"{label}")
-    print(f"bulk encrypt through bit unpack, {gf2.NAME} ({bits_launches} "
-          f"launches), bit pack: {mb / bits_s:.1f} MB/s "
-          f"({bits_s * 1e3:.3f} ms) on {label}")
     print(f"checks: oracle on {idx.numel()} strided blocks {oracle}, "
           f"decrypt(encrypt(x)) == x on every block {roundtrip}, DCE path "
-          f"on {n_dce} blocks equal {dce_equal}, bit-unpacked rounds equal "
-          f"on every block {bits_equal}")
+          f"on {n_dce} blocks equal {dce_equal}")
     print(f"gate-accurate DCE path: {ctr.nor} NOR + {ctr.copy} copy "
           f"primitives for {n_dce} blocks")
     # chip-level projection (cost model, paper Fig 13/17)
@@ -139,18 +126,14 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"Baseline (CPU+analog): {b.throughput * 16 / 1e9:7.2f} GB/s "
           f"-> DARTH speedup {darth['sar'].speedup_over(b):.1f}x "
           f"(paper: 59.4x) (model)")
-    if not (oracle and roundtrip and dce_equal and bits_equal):
+    if not (oracle and roundtrip and dce_equal):
         raise RuntimeError(f"AES checks failed: oracle {oracle}, round trip "
-                           f"{roundtrip}, DCE path {dce_equal}, bit-unpacked "
-                           f"rounds {bits_equal}")
+                           f"{roundtrip}, DCE path {dce_equal}")
     return {"key": key, "pt": pt, "ct": ct, "back": back, "rounds": rounds,
             "encrypt_s": enc_s, "decrypt_s": dec_s,
             "encrypt_mb_per_s": mb / enc_s, "decrypt_mb_per_s": mb / dec_s,
             "encrypt_launches": enc_launches,
-            "decrypt_launches": dec_launches,
-            "bits_encrypt_mb_per_s": mb / bits_s,
-            "bits_launches": bits_launches, "bits_ok": bits_equal,
-            "oracle_ok": oracle,
+            "decrypt_launches": dec_launches, "oracle_ok": oracle,
             "oracle_blocks": idx.numel(), "roundtrip_ok": roundtrip,
             "dce_ok": dce_equal, "dce_blocks": n_dce, "gates": ctr,
             "device": label}

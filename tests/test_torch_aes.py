@@ -98,16 +98,35 @@ def test_dce_path_equals_jax_with_equal_gate_counts(klen):
 
 
 @pytest.mark.parametrize("klen", [16, 24, 32])
-def test_bit_unpacked_rounds_equal_jax(klen):
-    """``packed=False`` runs the round as the JAX app composes it (bit
-    unpack, the int8 entry, bit pack): the same ciphertext as JAX's
-    kernel path and the state-byte path."""
+def test_kernel_rounds_call_the_state_byte_entry_once_a_round(
+        klen, monkeypatch):
+    """``use_kernel`` runs each round's GF(2) layer through K4's
+    state-byte entry, Nr times to encrypt and Nr - 1 to decrypt, with no
+    bit unpack or pack around it, and still equals JAX's kernel path."""
     rng = np.random.default_rng(100 + klen)
     pts = rng.integers(0, 256, size=(2, 9, 16), dtype=np.uint8)
     key = rng.integers(0, 256, size=(klen,), dtype=np.uint8)
-    want = np.asarray(jaes.aes_encrypt(pts, key, use_kernel=True))
+    nr = {16: 10, 24: 12, 32: 14}[klen]
+    calls = {"gf2_mvm_packed": 0, "unpack_bits": 0, "pack_bits": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(taes, "gf2_mvm_packed",
+                        counted("gf2_mvm_packed", taes.gf2_mvm_packed))
+    monkeypatch.setattr(taes, "_unpack_bits",
+                        counted("unpack_bits", taes._unpack_bits))
+    monkeypatch.setattr(taes, "_pack_bits",
+                        counted("pack_bits", taes._pack_bits))
     got = taes.aes_encrypt(torch.from_numpy(pts), key, use_kernel=True,
-                           packed=False, **CPU)
+                           **CPU)
+    assert calls == {"gf2_mvm_packed": nr, "unpack_bits": 0, "pack_bits": 0}
+    back = taes.aes_decrypt(got, key, use_kernel=True, **CPU)
+    assert calls == {"gf2_mvm_packed": 2 * nr - 1, "unpack_bits": 0,
+                     "pack_bits": 0}
+    want = np.asarray(jaes.aes_encrypt(pts, key, use_kernel=True))
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        taes.aes_encrypt(pts, key, use_kernel=True, **CPU).numpy(), want)
+    np.testing.assert_array_equal(back.numpy(), pts)
