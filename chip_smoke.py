@@ -22,11 +22,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
-   greedy tokens each.  Checks every completion, the launch counts per
-   decode step and prefill chunk, then runs one prefill chunk and one
-   decode step of the same model on the ``cuda`` and the ``torch``
-   backends and compares their logits.
-5. serve int8 — the same run with ``int8`` weights.
+   greedy tokens each.  The scheduler runs every decode step and prefill
+   chunk as a CUDA graph replay, building one graph for decode and one
+   per chunk length.  Checks every completion, the launch counts per
+   decode step and prefill chunk (replays counted), and that each step
+   was built once.  Then: one chunk and one decode step from a fresh
+   pool with graphs on and off, logits bit-equal; the same trace again
+   on the same scheduler (nothing new built, the same tokens) and on
+   one with ``cuda_graphs=False`` (the same tokens and launches), their
+   decode ms/step, tokens/s and peak memory side by side; one prefill
+   chunk and one decode step on the ``cuda`` and the ``torch`` backends,
+   logits compared; the f32 lm head's device time as a share of one
+   decode graph replay's; the card's busy share under the profiler,
+   graphs and eager.
+5. serve int8 — the same with ``int8`` weights.
+5b. serve bf16 — the same with the float weights unpacked: no MVM
+   kernel launches, K3 one a layer a step and chunk.
 6. aes — ``repro_torch.launch.aes.main`` at 2^24 blocks (256 MiB of
    plaintext) for AES-128, -192 and -256: the bulk cipher through K4's
    state-byte entry, its ciphertext against the numpy oracle on 65 536
@@ -73,7 +84,8 @@ ATTN_ATOL = 2e-2
 ATTN_RTOL = 2e-2
 
 # cuda-vs-torch backend logits of the full model (bf16 activations):
-# every linear is exact integer arithmetic on equal inputs, so the two
+# every linear is exact integer arithmetic on equal inputs (bf16 mode:
+# the same float matmul on both backends), so the two
 # backends can differ only through attention's f32 summation order,
 # which can move a bf16 activation by one ulp.  The bound is read in
 # the same run: the logits' change when one bf16 ulp is added to every
@@ -524,19 +536,65 @@ def check_gf2(dev, gpu_name: str) -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-5: serving the full-width model
+# Phases 4-5b: serving the full-width model
 # ---------------------------------------------------------------------------
 
 SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch-slots", "4", "--requests",
               "6", "--min-prompt-len", "20", "--prompt-len", "64", "--gen",
               "16", "--kv-block-size", "16", "--chunked-prefill", "--seed",
               "0", "--device", "cuda"]
-MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm"}
+SERVE_MODES = ("pum", "int8", "bf16")
+# the MVM kernel of each mode; bf16's projections are float matmuls
+MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm",
+               "bf16": None}
+
+
+def launch_gate(mode: str, layers: int, steps: int, chunks: int,
+                launches: dict) -> dict:
+    """Every decode step and prefill chunk: 7 launches a layer of the
+    mode's MVM kernel and none of the other, one K3 call a layer."""
+    want = {"bitslice_mvm_scaled": 0, "bitslice_mvm": 0,
+            "paged_attention": layers * (steps + chunks)}
+    if MVM_OF_MODE[mode]:
+        want[MVM_OF_MODE[mode]] = 7 * layers * (steps + chunks)
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{mode}: launches {got}, expected {want} for "
+                             f"{steps} decode steps + {chunks} chunks")
+    return got
+
+
+def tokens_of(completions: dict) -> dict[int, list[int]]:
+    return {rid: c.tokens for rid, c in sorted(completions.items())}
+
+
+def timed_run(sched, requests) -> dict:
+    """``sched.run(requests)``, with the launches, decode steps, chunks,
+    decode ms/step, tokens/s and peak memory of exactly that run."""
+    import torch
+    from repro_torch.kernels import registry
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    secs = sched.decode_seconds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    comps = sched.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sched.decode_steps - steps
+    return dict(tokens=tokens_of(comps), launches=dict(registry.LAUNCHES),
+                steps=n, chunks=sched.prefill_chunks - chunks,
+                decode_ms=1e3 * (sched.decode_seconds - secs) / max(1, n),
+                tokens_per_s=sum(len(c.tokens) for c in comps.values())
+                / wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def serve_run(mode: str, smi: str) -> tuple[dict, dict]:
-    """One run of the port's CLI; returns its result and the launch
-    counts of exactly that run."""
+    """The main path: one run of the port's CLI, whose scheduler builds
+    one CUDA graph for decode and one per chunk length as it goes.
+    Returns the CLI's result and the launch counts of exactly that run
+    (replays counted)."""
     import torch
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
@@ -556,23 +614,22 @@ def serve_run(mode: str, smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"{mode}: completions "
                              f"{[(c.rid, c.tokens) for c in comps.values()]}")
     steps, chunks = sched.decode_steps, sched.prefill_chunks
-    layers = cfg.num_layers
-    mvm = MVM_OF_MODE[mode]
-    other = MVM_OF_MODE["int8" if mode == "pum" else "pum"]
-    want = {mvm: 7 * layers * (steps + chunks), other: 0,
-            "paged_attention": layers * (steps + chunks)}
-    got = {k: launches.get(k, 0) for k in want}
-    if got != want:
-        raise AssertionError(f"{mode}: launches {got}, expected {want} for "
-                             f"{steps} decode steps + {chunks} chunks")
-    log(f"serve {mode}: {cfg.name} {layers} layers d_model {cfg.d_model}, "
-        f"6 requests x 16 tokens, {steps} decode steps, {chunks} prefill "
-        f"chunks; launches {got} = per step and chunk "
-        f"{mvm} 7x{layers}, paged_attention {layers}")
-    log(f"serve {mode}: decode_ms_per_step={res['decode_ms']:.3f} "
-        f"tokens_per_s={res['tokens'] / res['wall_s']:.2f} "
-        f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        f"on {smi}")
+    got = launch_gate(mode, cfg.num_layers, steps, chunks, launches)
+    progs = sched.step_programs()
+    built = [progs["decode"], *progs["chunk"].values()]
+    if any(n != 1 for n in built) or res["graphs"] != len(built):
+        raise AssertionError(f"{mode}: programs {progs}, {res['graphs']} "
+                             f"graphs; want each built once, as a graph")
+    log(f"serve {mode}: {cfg.name} {cfg.num_layers} layers d_model "
+        f"{cfg.d_model}, 6 requests x 16 tokens, {steps} decode steps, "
+        f"{chunks} prefill chunks; launches {got} (replays counted); "
+        f"programs {progs}")
+    log(f"serve {mode} graphs (first run, builds included): "
+        f"decode_ms_per_step={res['decode_ms']:.3f} tokens_per_s="
+        f"{res['tokens'] / res['wall_s']:.2f} graphs_captured="
+        f"{res['graphs']} capture_s={res['build_s']:.2f} (warm-up "
+        f"included) peak_mem_GB="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} on {smi}")
     return res, launches
 
 
@@ -660,40 +717,150 @@ def profiled(run) -> tuple[float, float, str] | None:
     return wall, sum(by_name.values()) / 1e6, top
 
 
-def device_busy(sched, mode: str) -> None:
+def like(sched, cuda_graphs: bool):
+    """A fresh scheduler of ``sched``'s geometry on its params."""
+    from repro_torch.serve import ContinuousBatchingScheduler
+    return ContinuousBatchingScheduler(
+        sched.cfg, sched.params, num_slots=sched.num_slots,
+        max_len=sched.max_len, kv_block_size=sched.block_size,
+        num_kv_blocks=sched.num_kv_blocks,
+        chunked_prefill=sched.chunked_prefill, device=sched.device,
+        cuda_graphs=cuda_graphs)
+
+
+def graph_vs_eager(sched) -> None:
+    """One prefill chunk and one decode step of the served model, each
+    from a fresh pool, with ``cuda_graphs`` on and off: the same kernels
+    on the same inputs, so the logits must be equal bit for bit (the
+    chunk's, and the decoding row's of the step) and so the tokens."""
+    import torch
+    from repro_torch.serve import Request
+    bs = sched.block_size
+    g = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, sched.cfg.vocab_size, (bs,),
+                           generator=g).tolist()
+    got = {}
+    for graphs in (True, False):
+        s = like(sched, graphs)
+        s.start_request(Request(prompt, max_tokens=2, rid=0))
+        res = s.tick(0)              # the prompt's one chunk, then a step
+        logits = s.last_logits()
+        got[graphs] = ([t for _, _, t in res.events], logits[bs].clone(),
+                       logits["decode"][0].clone())
+        del s
+    (tok_g, chunk_g, step_g), (tok_e, chunk_e, step_e) = got[True], got[False]
+    equal = torch.equal(chunk_g, chunk_e) and torch.equal(step_g, step_e)
+    err = max((chunk_g - chunk_e).abs().max().item(),
+              (step_g - step_e).abs().max().item())
+    log(f"graph vs eager {sched.cfg.pum.mode}: chunk of {bs} + one decode "
+        f"step logits bit-equal: {equal} (max|diff| {err:.3g}), tokens "
+        f"{tok_g} / {tok_e}")
+    if not equal or tok_g != tok_e or len(tok_g) != 2:
+        raise AssertionError("graph and eager steps differ")
+
+
+def step_device_ms(sched) -> float:
+    """Device time of one replay of the decode graph, between CUDA
+    events, every slot active at a depth of 60 tokens (the trace's
+    middle) through its own blocks (the pool is idle after the run)."""
+    import numpy as np
+    prog = sched.program("decode")
+    b, w = sched.num_slots, sched.table_width
+    table = np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w)
+    ones = np.ones(b, np.int32)
+    prog.stage(np.zeros((b, 1), np.int32), 60 * ones, ones, -ones, ones,
+               (1 << 20) * ones, table)
+    return event_ms(prog.launch, reps=20)
+
+
+def head_share(sched, step_ms: float, smi: str) -> None:
+    """The f32 lm head alone (``lm.forward``'s last matmul) at the
+    decode step's B, timed with CUDA events, as a share of the step."""
+    import torch
+    cfg, params, dev = sched.cfg, sched.params, sched.device
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn((sched.num_slots, 1, cfg.d_model), generator=g,
+                    device=dev)
+    ms = device_ms(lambda: torch.matmul(h, head.to(torch.float32)))
+    log(f"lm head {cfg.pum.mode}: f32 [{sched.num_slots}, {cfg.d_model}] x "
+        f"{list(head.shape)} {ms:.4f} ms = {100 * ms / step_ms:.1f} % of one "
+        f"decode step's device time {step_ms:.4f} ms (graph replay) on {smi}")
+
+
+def device_busy(sched, label: str, smi: str) -> None:
     """A short burst (4 requests of 20..32 prompt tokens, 6 tokens each:
     2 prefill chunks a request, then a full slot pool decoding) under
     the profiler: the share of the wall time the card spends in kernels,
-    and the kernels that take it.  The window is short because reading
-    the trace back costs far more than recording it."""
+    and the kernels that take it.  The burst runs once unprofiled first,
+    so any graph it needs is built outside the window.  The window is
+    short because reading the trace back costs far more than recording
+    it."""
     from repro_torch.serve import synthetic_workload
     requests = synthetic_workload(4, sched.cfg.vocab_size, min_prompt=20,
                                   max_prompt=32, max_new=6, seed=1)
+    sched.run(requests)
     steps, chunks = sched.decode_steps, sched.prefill_chunks
     res = profiled(lambda: sched.run(requests))
     if res is None:
-        log(f"profile {mode}: the profiler saw no device time (not "
-            f"measured)")
+        log(f"profile {label}: the profiler saw no device time (not "
+            f"measured) on {smi}")
         return
     wall, busy, top = res
-    log(f"profile {mode}: {sched.decode_steps - steps} decode steps + "
+    log(f"profile {label}: {sched.decode_steps - steps} decode steps + "
         f"{sched.prefill_chunks - chunks} prefill chunks, wall "
         f"{wall:.3f} s under the profiler, kernels {busy:.3f} s "
-        f"({100 * busy / wall:.1f} % busy); top: {top}")
+        f"({100 * busy / wall:.1f} % busy) on {smi}; top: {top}")
 
 
 def serve_phases(smi: str) -> dict[str, int]:
-    """Phases 4-5; returns each kernel's launches on the main path."""
+    """Phases 4-5b; returns each kernel's launches on the main path
+    (each mode's first run)."""
     import gc
     import torch
     launches: dict[str, int] = {}
-    for mode in ("pum", "int8"):
+    for mode in SERVE_MODES:
         res, counts = serve_run(mode, smi)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-        backend_parity(res["scheduler"])
-        device_busy(res["scheduler"], mode)
-        del res
+        sched = res["scheduler"]
+        graph_vs_eager(sched)
+        first = tokens_of(res["completions"])
+        # the same trace again: nothing new to build, the same tokens
+        progs = sched.step_programs()
+        steady = timed_run(sched, res["requests"])
+        if sched.step_programs() != progs or steady["tokens"] != first:
+            raise AssertionError(f"{mode}: the second run built "
+                                 f"{sched.step_programs()} (had {progs}) or "
+                                 f"changed its tokens")
+        launch_gate(mode, sched.cfg.num_layers, steady["steps"],
+                    steady["chunks"], steady["launches"])
+        eager_sched = like(sched, cuda_graphs=False)
+        eager = timed_run(eager_sched, res["requests"])
+        if eager["tokens"] != first or eager["launches"] != steady["launches"]:
+            raise AssertionError(
+                f"{mode}: eager run differs from the graph run: tokens equal "
+                f"{eager['tokens'] == first}, launches {eager['launches']} "
+                f"against {steady['launches']}")
+        log(f"serve {mode} graphs vs eager, the same trace (completions "
+            f"equal token for token, launches equal): decode_ms_per_step "
+            f"{steady['decode_ms']:.3f} / {eager['decode_ms']:.3f}, "
+            f"tokens_per_s {steady['tokens_per_s']:.2f} / "
+            f"{eager['tokens_per_s']:.2f}, peak_mem_GB "
+            f"{steady['peak_gb']:.2f} / {eager['peak_gb']:.2f} on {smi}")
+        backend_parity(sched)
+        step_ms = step_device_ms(sched)
+        busy = 100 * step_ms / steady["decode_ms"]
+        log(f"serve {mode} decode step: device {step_ms:.4f} ms a graph "
+            f"replay, host {steady['decode_ms']:.3f} ms a step in the "
+            f"graph run: the card busy {busy:.1f} % of a decode step (no "
+            f"profiler) on {smi}")
+        head_share(sched, step_ms, smi)
+        device_busy(sched, f"{mode} graphs", smi)
+        device_busy(eager_sched, f"{mode} eager", smi)
+        del res, sched, eager_sched
         gc.collect()
         torch.cuda.empty_cache()
     return launches
@@ -900,7 +1067,7 @@ def main(argv=None) -> int:
 
     log(f"phases 1-3 done at {time.perf_counter() - start:.1f} s")
     launches = serve_phases(smi)
-    log(f"phases 4-5 done at {time.perf_counter() - start:.1f} s")
+    log(f"phases 4-5b done at {time.perf_counter() - start:.1f} s")
     for k, v in aes_phase(dev, smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 6 done at {time.perf_counter() - start:.1f} s")

@@ -16,7 +16,9 @@
 
 The registry also holds the launch counters: each wrapper adds one to
 its kernel's count where it launches the kernel, and nowhere else, so a
-run can show that the main path went through the kernels, and each
+run can show that the main path went through the kernels (a launch
+recorded while a CUDA graph is captured counts at each replay of the
+graph, :func:`recording`), and each
 card's properties (:func:`device_props`), from which the kernels'
 launch plans are sized.
 """
@@ -116,12 +118,42 @@ def resolve_backend(tensor: torch.Tensor,
 LAUNCHES: collections.Counter[str] = collections.Counter()
 
 
+def _recorders() -> list[collections.Counter[str]]:
+    rec = getattr(_STATE, "recorders", None)
+    if rec is None:
+        rec = _STATE.recorders = []
+    return rec
+
+
 def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+    """One launch of ``kernel``: into the innermost :func:`recording`
+    counter when one is open, else into ``LAUNCHES``."""
+    rec = _recorders()
+    (rec[-1] if rec else LAUNCHES)[kernel] += 1
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the launches issued inside into a counter of their own,
+    kept out of ``LAUNCHES``: a CUDA graph's capture (the counter stays
+    with the graph, and each replay adds it with :func:`add_launches`)
+    and its warm-up (the counter is dropped)."""
+    counter: collections.Counter[str] = collections.Counter()
+    rec = _recorders()
+    rec.append(counter)
+    try:
+        yield counter
+    finally:
+        rec.pop()
+
+
+def add_launches(counts: collections.Counter[str]) -> None:
+    """The launches of one replay of a captured graph."""
+    LAUNCHES.update(counts)
 
 
 # ---------------------------------------------------------------------------

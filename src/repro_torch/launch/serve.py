@@ -7,6 +7,8 @@ the paged KV pool, on the card by default.
 
 Weights are random, drawn on the device from ``--seed``; ``--reduced``
 serves the arch's miniature (the CPU tests do, with ``--device cpu``).
+``--pum-mode bf16`` serves the float weights unpacked.  On the card the
+scheduler runs each step as a CUDA graph replay (``serve.compiled``).
 Prints throughput and decode milliseconds per step on lines of their
 own, beside the device it ran on.
 """
@@ -40,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16,
                     help="tokens generated per request")
     ap.add_argument("--pum-mode", default="pum",
-                    choices=["int8", "pum"])
+                    choices=["bf16", "int8", "pum"])
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--num-kv-blocks", type=int, default=0,
                     help="pool size (default: slots * ceil(max_len / "
@@ -92,7 +94,10 @@ def main(argv: list[str] | None = None) -> dict:
     toks = sum(len(c.tokens) for c in out.values())
     dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
+    # host wall time from the start of a decode dispatch to the copy of
+    # its outputs (a step's one-time build is not in it)
     decode_ms = 1e3 * sched.decode_seconds / max(1, sched.decode_steps)
+    graphs, build_s = sched.graphs_captured()
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"mode={args.pum_mode} slots={args.batch_slots} "
           f"kv=paged(block={args.kv_block_size}, "
@@ -101,12 +106,13 @@ def main(argv: list[str] | None = None) -> dict:
           f"device={dev_name} setup_s={setup_s:.2f}")
     print(f"served {len(out)} requests, {toks} tokens in {wall_s:.3f} s: "
           f"{sched.decode_steps} decode steps, {sched.prefill_chunks} "
-          f"prefill chunks")
+          f"prefill chunks; programs {sched.step_programs()}, {graphs} "
+          f"CUDA graphs captured in {build_s:.2f} s")
     print(f"throughput_tok_per_s={toks / wall_s:.2f}")
     print(f"decode_ms_per_step={decode_ms:.3f}")
     return {"scheduler": sched, "requests": reqs, "completions": out,
             "tokens": toks, "wall_s": wall_s, "decode_ms": decode_ms,
-            "setup_s": setup_s}
+            "setup_s": setup_s, "graphs": graphs, "build_s": build_s}
 
 
 if __name__ == "__main__":

@@ -85,8 +85,9 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / (torch.tensor(theta, dtype=torch.float32,
-                                device=positions.device) ** exps)
+    # a fill, not a host-to-device copy: the step may be captured
+    freqs = 1.0 / (torch.full((), theta, dtype=torch.float32,
+                              device=positions.device) ** exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

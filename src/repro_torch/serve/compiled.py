@@ -1,0 +1,125 @@
+"""The compiled serving step: one step function at one input shape, run
+on the card as the replay of one CUDA graph.
+
+The port's counterpart of the reference's ``jax.jit`` of the slot-wise
+decode step and of the batch-1 chunk prefill
+(``src/repro/serve/scheduler.py``): the scheduler builds one
+:class:`CompiledStep` for decode and one per distinct chunk length, once
+for its lifetime, and every later call replays it.  A replay is one
+host call for the 252 MVM launches, 36 attention calls and the small
+ops of a step, which eager dispatch issues one by one from Python.
+
+A step's inputs are a few small int32 tensors.  They live in one static
+buffer on the device, filled from one pinned host staging tensor by a
+single non-blocking copy; the step's integer outputs come back packed
+in one int32 tensor, by a single copy.  Anything else the step returns
+(its logits) stays on the device, in ``CompiledStep.aux``, overwritten
+by the next call.
+
+On the CPU the same object runs the function eagerly on the same static
+buffers: a CPU has no graphs.  On the card, ``graphs=False`` does the
+same, which is the counterpart of running the reference under
+``jax.disable_jit()``.  A capture or a replay that fails raises; nothing
+returns quietly to eager dispatch.
+"""
+from __future__ import annotations
+
+import collections
+import math
+import time
+from collections.abc import Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import registry
+
+
+class CompiledStep:
+    """``fn`` at one input shape.
+
+    ``fn(*inputs) -> (ints, *aux)``: ``inputs`` are int32 views of one
+    static device buffer, of ``shapes``; ``ints`` is an int32 tensor that
+    :meth:`read` copies to the host; ``aux`` stays on the device.
+
+    With ``graphs`` on a CUDA device, :meth:`build` warms ``fn`` up on
+    ``stream`` (outside capture the kernels' libraries load, their launch
+    plans are cached and their shared-memory attributes are set), then
+    captures it into a CUDA graph whose allocations come from ``pool``.
+    The inputs are zero for both: every block-table row is the trash
+    block and no slot is active, so no live KV cell moves.  The launches
+    counted during capture are kept with the graph (``launches``) and
+    added to ``registry.LAUNCHES`` at each replay; the warm-up's count
+    nowhere.
+    """
+
+    def __init__(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
+                 device: torch.device, *, graphs: bool = True, pool=None,
+                 stream: torch.cuda.Stream | None = None):
+        self.fn = fn
+        self.device = device
+        self.graphs = graphs and device.type == "cuda"
+        self._pool = pool
+        self._stream = stream
+        sizes = [math.prod(s) for s in shapes]
+        ends = np.cumsum(sizes).tolist()
+        self._slices = [slice(e - n, e) for n, e in zip(sizes, ends)]
+        self._staging = torch.zeros(sum(sizes), dtype=torch.int32,
+                                    pin_memory=device.type == "cuda")
+        self._host = self._staging.numpy()
+        self._buf = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+        self.inputs = [self._buf[sl].view(shape)
+                       for sl, shape in zip(self._slices, shapes)]
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: collections.Counter[str] = collections.Counter()
+        self.build_seconds = 0.0
+        self._ints: torch.Tensor | None = None
+        self.aux: tuple[torch.Tensor, ...] = ()
+
+    @torch.inference_mode()
+    def build(self) -> None:
+        """Warm up and capture (once); a no-op when running eagerly."""
+        if not self.graphs or self.graph is not None:
+            return
+        t0 = time.perf_counter()
+        side, cur = self._stream, torch.cuda.current_stream(self.device)
+        self._buf.zero_()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), registry.recording():
+            self.fn(*self.inputs)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with registry.recording() as counts, \
+                torch.cuda.graph(graph, pool=self._pool, stream=side):
+            self._ints, *aux = self.fn(*self.inputs)
+        self.aux = tuple(aux)
+        self.graph = graph
+        self.launches = counts
+        torch.cuda.synchronize(self.device)
+        self.build_seconds = time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def stage(self, *values) -> None:
+        """Fill the inputs: the host staging tensor, then one copy."""
+        for sl, v in zip(self._slices, values):
+            self._host[sl] = np.asarray(v).reshape(-1)
+        self._buf.copy_(self._staging, non_blocking=True)
+
+    @torch.inference_mode()
+    def launch(self) -> None:
+        """One step on the staged inputs: a replay, or eager dispatch."""
+        if not self.graphs:
+            self._ints, *aux = self.fn(*self.inputs)
+            self.aux = tuple(aux)
+            return
+        self.graph.replay()
+        registry.add_launches(self.launches)
+
+    def read(self) -> np.ndarray:
+        """The step's integer outputs: one copy, which waits for it."""
+        return self._ints.cpu().numpy()
+
+    def __call__(self, *values) -> np.ndarray:
+        self.stage(*values)
+        self.launch()
+        return self.read()

@@ -21,9 +21,6 @@ from __future__ import annotations
 
 from collections import deque
 from collections.abc import Sequence
-from typing import Any
-
-from repro_torch.config import ModelConfig
 
 TRASH_BLOCK = 0
 
@@ -123,29 +120,4 @@ class BlockAllocator:
             if self._ref[i] == 0:
                 del self._ref[i]
                 self._free.append(i)
-
-
-def is_paged_cache(state: Any) -> bool:
-    return isinstance(state, dict) and "k_pool" in state
-
-
-def slot_states_view(cfg: ModelConfig, states: list[Any], slot: int
-                     ) -> list[Any]:
-    """A batch-1 view of ``slot`` for chunked prefill.  Paged pools are
-    shared, with no slot axis, so they pass through whole; the dense
-    family has no per-slot recurrent rows."""
-    del slot
-    for st in states:
-        if not is_paged_cache(st):
-            raise NotImplementedError(
-                f"{cfg.name}: per-slot recurrent state is not ported yet")
-    return states
-
-
-def slot_states_merge(cfg: ModelConfig, states: list[Any], one: list[Any],
-                      slot: int) -> list[Any]:
-    """Inverse of :func:`slot_states_view`: adopt the updated pools (the
-    chunk step updated them in place)."""
-    del states, slot
-    return slot_states_view(cfg, one, 0)
 

@@ -13,6 +13,13 @@ scheduler iteration (:meth:`ContinuousBatchingScheduler.tick`):
     ``cache_index`` vector, an active mask, and a block table masked so
     that rows not decoding write to the trash block.
 
+Both steps are compiled (``serve.compiled``): on the card the decode
+step is the replay of one CUDA graph, and each chunk the replay of one
+graph per distinct chunk length (the block size plus ragged tails), each
+built once for the scheduler's lifetime, as the reference jits
+``make_slot_step`` once and its chunk prefill once per chunk length.
+:meth:`ContinuousBatchingScheduler.step_programs` counts the builds.
+
 Admission claims a free slot and the request's blocks up front (FIFO; a
 request the pool cannot fund yet waits), retirement releases them.
 
@@ -28,6 +35,7 @@ arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from collections import deque
@@ -39,6 +47,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serve import kv_pool
+from repro_torch.serve.compiled import CompiledStep
 from repro_torch.serve.engine import (RequestTooLarge, ServeEngine,
                                       make_decode_step, sample_token)
 
@@ -107,10 +116,13 @@ def make_slot_step(cfg: ModelConfig, kv_len: int):
 
     (params, states, cur_tok [B,1], cache_index [B], active [B] bool,
      eos [B], gen [B], max_toks [B], block_table [B,W])
-      -> (states, tok [B], cache_index', active', gen', done [B])
+      -> (states, tok [B], cache_index', active', gen', done [B],
+          logits [B,1,V])
 
     Every slot runs; ``active`` masks rows out of the counters and, via
-    the masked block table, out of the pool.  Greedy sampling."""
+    the masked block table, out of the pool.  Greedy sampling.  The
+    logits ride along for the compiled step, which keeps them on the
+    device."""
     decode = make_decode_step(cfg, kv_len=kv_len)
 
     def slot_step(params, states, cur_tok, cache_index, active, eos, gen,
@@ -124,7 +136,7 @@ def make_slot_step(cfg: ModelConfig, kv_len: int):
         done = active & ((tok == eos) | (gen >= max_toks))
         cache_index = cache_index + active.to(cache_index.dtype)
         active = active & ~done
-        return states, tok, cache_index, active, gen, done
+        return states, tok, cache_index, active, gen, done, logits
 
     return slot_step
 
@@ -136,7 +148,13 @@ class ContinuousBatchingScheduler:
     pool (default: ``num_slots * ceil(max_len / kv_block_size)``);
     ``chunked_prefill`` streams prompts in block-size chunks between
     decode steps.  ``kernel_backend`` (``"cuda"``/``"torch"``/None) is
-    ambient for every step; None selects by device.
+    ambient for every step; None selects by device.  It is read when a
+    step is built, as the reference reads it when a step is traced.
+
+    ``cuda_graphs`` (on the card only) runs each step as the replay of
+    its CUDA graph; False dispatches every op of every step from Python,
+    the counterpart of running the reference under ``jax.disable_jit()``.
+    On the CPU the steps always run eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
@@ -145,7 +163,7 @@ class ContinuousBatchingScheduler:
                  chunked_prefill: bool = False, kernel_backend=None,
                  device: str | torch.device = "cuda",
                  prefix_cache: bool = False, speculate_k: int = 0,
-                 mesh=None):
+                 mesh=None, cuda_graphs: bool = True):
         if prefix_cache or speculate_k or mesh is not None:
             raise NotImplementedError(
                 "prefix caching, speculative decoding and tensor-parallel "
@@ -169,14 +187,32 @@ class ContinuousBatchingScheduler:
         self.chunked_prefill = chunked_prefill
         self.table_width = kv_pool.table_width(max_len, kv_block_size)
         self.num_kv_blocks = num_kv_blocks or num_slots * self.table_width
+        self.states = lm.init_paged_state(
+            cfg, num_slots, max_len, num_blocks=self.num_kv_blocks,
+            block_size=kv_block_size, device=self.device)
         self._step = make_slot_step(cfg, kv_len=max_len)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        if self.cuda_graphs:
+            # the graphs replay one after another, never at once: one
+            # memory pool and one capture stream serve them all
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        else:
+            self._graph_pool = self._capture_stream = None
+        # "decode", or a chunk length -> its step, and how many times
+        # each was built (lifetime: a reset keeps them)
+        self._programs: dict[str | int, CompiledStep] = {}
+        self._builds: collections.Counter[str | int] = collections.Counter()
         self._reset()
 
     def _reset(self) -> None:
         b = self.num_slots
-        self.states = lm.init_paged_state(
-            self.cfg, b, self.max_len, num_blocks=self.num_kv_blocks,
-            block_size=self.block_size, device=self.device)
+        # the captured graphs hold the pools' addresses, so the pools
+        # are zeroed in place, never reallocated: every graph stays valid
+        # across a reset and none replays against freed memory
+        for st in self.states:
+            for t in st.values():
+                t.zero_()
         self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
         self._block_table = np.zeros((b, self.table_width), np.int32)
         self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
@@ -261,22 +297,76 @@ class ContinuousBatchingScheduler:
 
     # -- the steps ---------------------------------------------------------
 
-    def _chunk_prefill(self, tokens: torch.Tensor, start: int, slot: int
-                       ) -> torch.Tensor:
-        """Run one chunk of a slot's prompt against the shared pools."""
-        table_row = torch.as_tensor(self._block_table[slot:slot + 1],
-                                    device=self.device)
-        one = kv_pool.slot_states_view(self.cfg, self.states, slot)
-        with self.engine.backend_ctx():
-            logits, one = lm.forward(
-                self.params, tokens, self.cfg, states=one,
-                cache_index=torch.tensor([start], dtype=torch.int32,
-                                         device=self.device),
-                block_table=table_row, last_only=True, kv_len=self.max_len,
-                write_table=table_row)
-        self.states = kv_pool.slot_states_merge(self.cfg, self.states, one,
-                                                slot)
-        return logits
+    def program(self, key: str | int) -> CompiledStep:
+        """The compiled step of ``key`` ("decode", or a chunk length),
+        built at its first use."""
+        prog = self._programs.get(key)
+        if prog is None:
+            fn, shapes = (self._decode_fn() if key == "decode"
+                          else self._chunk_fn(key))
+            prog = CompiledStep(fn, shapes, self.device,
+                                graphs=self.cuda_graphs,
+                                pool=self._graph_pool,
+                                stream=self._capture_stream)
+            prog.build()
+            self._programs[key] = prog
+            self._builds[key] += 1
+        return prog
+
+    def _decode_fn(self):
+        """The slot step over all slots: (cur_tok [B,1], cache_index,
+        active, eos, gen, max_toks [B], block_table [B,W]) -> (tok,
+        cache_index', active', gen', done packed as [5, B]; logits)."""
+        params, states, step = self.params, self.states, self._step
+        b, w = self.num_slots, self.table_width
+
+        def decode(cur_tok, cache_index, active, eos, gen, max_toks,
+                   block_table):
+            with self.engine.backend_ctx():
+                _, tok, cache_index, active, gen, done, logits = step(
+                    params, states, cur_tok, cache_index, active != 0, eos,
+                    gen, max_toks, block_table)
+            ints = torch.stack([tok, cache_index, active.to(torch.int32),
+                                gen, done.to(torch.int32)])
+            return ints, logits
+
+        return decode, [(b, 1), (b,), (b,), (b,), (b,), (b,), (b, w)]
+
+    def _chunk_fn(self, length: int):
+        """One chunk of ``length`` prompt tokens of one slot against the
+        shared pools: (tokens [1,length], start [1], table_row [1,W]) ->
+        (the greedy next token [1, 1]; logits [1,1,V])."""
+        params, states, cfg, max_len = (self.params, self.states, self.cfg,
+                                        self.max_len)
+
+        def chunk(tokens, start, table_row):
+            with self.engine.backend_ctx():
+                logits, _ = lm.forward(
+                    params, tokens, cfg, states=states, cache_index=start,
+                    block_table=table_row, last_only=True, kv_len=max_len,
+                    write_table=table_row)
+            return sample_token(logits), logits
+
+        return chunk, [(1, length), (1,), (1, self.table_width)]
+
+    def step_programs(self) -> dict:
+        """How many times each step was built: the counterpart of the
+        reference's jit cache sizes, ``{"decode": 1, "chunk": {16: 1,
+        4: 1}}`` after a run whose chunks were 16 and 4 tokens long."""
+        return {"decode": self._builds["decode"],
+                "chunk": dict(sorted((k, n) for k, n in self._builds.items()
+                                     if k != "decode"))}
+
+    def graphs_captured(self) -> tuple[int, float]:
+        """(CUDA graphs captured, seconds spent building them: warm-up
+        and capture)."""
+        progs = [p for p in self._programs.values() if p.graph is not None]
+        return len(progs), sum(p.build_seconds for p in progs)
+
+    def last_logits(self) -> dict[str | int, torch.Tensor]:
+        """Each step's logits from its last call, on the device ("decode"
+        [B,1,V], a chunk length [1,1,V]); the next call overwrites them."""
+        return {k: p.aux[0] for k, p in self._programs.items() if p.aux}
 
     def _feed_prefills(self, step: int, out: dict[int, Completion]) -> int:
         dispatches = 0
@@ -285,9 +375,9 @@ class ContinuousBatchingScheduler:
             chunk = self.block_size if self.chunked_prefill \
                 else len(pf.prompt)
             c = min(chunk, len(pf.prompt) - pf.pos)
-            toks = torch.tensor([pf.prompt[pf.pos:pf.pos + c]],
-                                dtype=torch.int32, device=self.device)
-            logits = self._chunk_prefill(toks, pf.pos, slot)
+            tok0 = int(self.program(c)(pf.prompt[pf.pos:pf.pos + c],
+                                        pf.pos,
+                                        self._block_table[slot])[0, 0])
             pf.pos += c
             dispatches += 1
             self.prefill_chunks += 1
@@ -295,7 +385,6 @@ class ContinuousBatchingScheduler:
                 continue
             del self._prefills[slot]
             req = pf.req
-            tok0 = int(sample_token(logits)[0, 0])
             if tok0 == req.eos_id or req.max_tokens == 1:
                 reason = "eos" if tok0 == req.eos_id else "length"
                 out[req.rid] = Completion(
@@ -322,27 +411,17 @@ class ContinuousBatchingScheduler:
         decoded = False
         if self._active.any():
             was_active = self._active.copy()
-            dev = self.device
+            prog = self.program("decode")
             t0 = time.perf_counter()
-            with self.engine.backend_ctx():
-                (self.states, tok, cache_index, active, gen,
-                 done) = self._step(
-                    self.params, self.states,
-                    torch.as_tensor(self._cur_tok, device=dev),
-                    torch.as_tensor(self._cache_index, device=dev),
-                    torch.as_tensor(self._active, device=dev),
-                    torch.as_tensor(self._eos, device=dev),
-                    torch.as_tensor(self._gen, device=dev),
-                    torch.as_tensor(self._max_toks, device=dev),
-                    torch.as_tensor(self._block_table, device=dev))
-            tok = tok.cpu().numpy()
+            ints = prog(self._cur_tok, self._cache_index, self._active,
+                        self._eos, self._gen, self._max_toks,
+                        self._block_table)
             self.decode_seconds += time.perf_counter() - t0
             self.decode_steps += 1
-            self._cur_tok = tok[:, None].astype(np.int32)
-            self._cache_index = cache_index.cpu().numpy()
-            self._active = active.cpu().numpy()
-            self._gen = gen.cpu().numpy()
-            done = done.cpu().numpy()
+            tok, self._cache_index, active, self._gen, done = ints
+            self._cur_tok = tok[:, None].copy()
+            self._active = active.astype(bool)
+            done = done.astype(bool)
             for slot in np.nonzero(was_active)[0]:
                 req = self._slot_req[slot]
                 self._slot_toks[slot].append(int(tok[slot]))

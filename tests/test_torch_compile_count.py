@@ -1,0 +1,86 @@
+"""The port's compile-count contract, the counterpart of
+``tests/test_compile_count.py``: the scheduler builds its decode step
+once and its chunk prefill once per distinct chunk length, and a second
+run builds nothing new (``ContinuousBatchingScheduler.step_programs``,
+the counterpart of the reference's jit cache sizes).
+
+On the CPU a compiled step runs eagerly through its static buffers, so
+``cuda_graphs=True`` and ``False`` run the same code here and must give
+the same completions, equal to the solo oracle's and to the JAX
+scheduler's on the same trace.  Graph capture itself is exercised on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax
+import pytest
+
+from _torch_port import to_numpy
+from repro.config import PUMConfig as JPUM, small_test_config as jsmall
+from repro.models import lm as jlm
+from repro.serve import ContinuousBatchingScheduler as JSched
+from repro.serve import Request as JRequest
+from repro_torch import bridge
+from repro_torch.config import PUMConfig as TPUM, small_test_config as tsmall
+from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                               oracle_completion)
+
+BLOCK = 4
+# f32 activations: the integer contractions are exact on equal inputs
+# and the float ones differ across frameworks by summation order only,
+# so the greedy tokens of these short traces agree
+KW = dict(dtype="float32")
+SCHED = dict(num_slots=2, max_len=32, kv_block_size=BLOCK,
+             chunked_prefill=True)
+
+
+@pytest.fixture(scope="module", params=["bf16", "int8", "pum"])
+def models(request):
+    """JAX's params for one mode and the port's, carried across."""
+    mode = request.param
+    jcfg = jsmall(pum=JPUM(mode=mode), **KW)
+    raw = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = tsmall(pum=TPUM(mode=mode), **KW)
+    params = bridge.params_from_numpy(
+        to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
+    return dict(jcfg=jcfg, raw=raw, tcfg=tcfg, params=params)
+
+
+def _sched(models, **kw):
+    return ContinuousBatchingScheduler(models["tcfg"], models["params"],
+                                       device="cpu", **SCHED, **kw)
+
+
+def _reqs(lengths, cls=Request):
+    return [cls(list(range(1, n + 1)), max_tokens=3, rid=i)
+            for i, n in enumerate(lengths)]
+
+
+def test_chunked_serving_builds_each_step_once(models):
+    sched = _sched(models)
+    assert sched.step_programs() == {"decode": 0, "chunk": {}}
+    # prompt lengths 4 and 8: different chunk counts, one chunk shape
+    sched.run(_reqs([BLOCK, 2 * BLOCK]))
+    assert sched.step_programs() == {"decode": 1, "chunk": {BLOCK: 1}}
+    # steady state: a second run with other lengths builds nothing new
+    sched.run(_reqs([2 * BLOCK, BLOCK]))
+    assert sched.step_programs() == {"decode": 1, "chunk": {BLOCK: 1}}
+    # a ragged tail (6 = 4 + 2) adds exactly one chunk program
+    sched.run(_reqs([6]))
+    assert sched.step_programs() == {"decode": 1,
+                                     "chunk": {2: 1, BLOCK: 1}}
+    assert sched.graphs_captured() == (0, 0.0)      # no graphs on a CPU
+
+
+def test_compiled_and_eager_equal_oracle_and_jax(models):
+    lengths = [BLOCK, 2 * BLOCK, 6]
+    out = {flag: _sched(models, cuda_graphs=flag).run(_reqs(lengths))
+           for flag in (True, False)}
+    assert {r: c.tokens for r, c in out[True].items()} == \
+        {r: c.tokens for r, c in out[False].items()}
+    sched = _sched(models)
+    js = JSched(models["jcfg"], models["raw"], kernel_backend="xla", **SCHED)
+    jout = js.run(_reqs(lengths, JRequest))
+    for req in _reqs(lengths):
+        got = out[True][req.rid].tokens
+        assert got == oracle_completion(sched.engine, req)
+        assert got == jout[req.rid].tokens, (req.rid, got,
+                                             jout[req.rid].tokens)

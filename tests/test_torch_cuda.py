@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+compiled serving step (CUDA graphs) against eager dispatch, on the
 card.  Marked ``cuda``: without a card every test here skips (the
 kernels have no CPU mode).  Imports no JAX, so it runs on the machine
 with the card: ``python -m pytest -q tests/test_torch_cuda.py``."""
@@ -403,3 +404,110 @@ def test_aes_rounds_launch_the_state_byte_entry(dev, klen):
     want = aes_app.aes_encrypt_np(pt, key)
     np.testing.assert_array_equal(ct.cpu().numpy(), want)
     np.testing.assert_array_equal(back.cpu().numpy(), pt)
+
+
+# ---------------------------------------------------------------------------
+# The compiled serving step (``serve.compiled``): graphs against eager
+# ---------------------------------------------------------------------------
+
+def _served(dev, mode):
+    """The reduced Qwen2.5-3B widened to a head dim of 64, which K3 takes
+    (the reduced one has 16), prepacked for ``mode``."""
+    from repro_torch.config import PUMConfig
+    from repro_torch.configs import qwen2_5_3b
+    from repro_torch.models import lm
+    cfg = qwen2_5_3b.reduced().replace(
+        d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=512,
+        pum=PUMConfig(mode=mode))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                       cfg)
+
+
+def _sched(dev, cfg, params, graphs):
+    from repro_torch.serve import ContinuousBatchingScheduler
+    return ContinuousBatchingScheduler(cfg, params, num_slots=2, max_len=32,
+                                       kv_block_size=8, chunked_prefill=True,
+                                       device=dev, cuda_graphs=graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "pum"])
+def test_graph_and_eager_steps_bit_equal(dev, mode):
+    """One prefill chunk then 3 decode steps, with graphs and eagerly:
+    the same kernels on the same inputs give the same logits bit for
+    bit (the chunk's, and the decoding row's of each step) and tokens."""
+    from repro_torch.serve import Request
+    cfg, params = _served(dev, mode)
+    runs = {}
+    for graphs in (True, False):
+        sched = _sched(dev, cfg, params, graphs)
+        sched.start_request(Request(list(range(1, 9)), max_tokens=4, rid=0))
+        events, logits = [], []
+        for step in range(3):
+            events += sched.tick(step).events
+            last = sched.last_logits()
+            logits += ([last[8].clone()] if step == 0 else []) \
+                + [last["decode"][0].clone()]
+        assert sched.step_programs() == {"decode": 1, "chunk": {8: 1}}
+        assert sched.graphs_captured()[0] == (2 if graphs else 0)
+        runs[graphs] = events, logits
+    assert runs[True][0] == runs[False][0]
+    assert len(runs[True][0]) == 4
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_the_captured_launches(dev):
+    """A replay counts what its capture recorded: N replays of the
+    decode graph add N times its launches, one serving run counts what
+    the same run counts eagerly, and warm-up launches count nowhere."""
+    from repro_torch.serve import Request
+    cfg, params = _served(dev, "pum")
+    reqs = [Request(list(range(1, n + 1)), max_tokens=5, rid=i)
+            for i, n in enumerate([8, 12, 3])]
+    counts = {}
+    for graphs in (True, False):
+        sched = _sched(dev, cfg, params, graphs)
+        registry.reset_launches()
+        sched.run(reqs)
+        steps = sched.decode_steps + sched.prefill_chunks
+        counts[graphs] = dict(registry.LAUNCHES)
+        assert counts[graphs] == {
+            "bitslice_mvm_scaled": 7 * cfg.num_layers * steps,
+            "paged_attention": cfg.num_layers * steps}
+    assert counts[True] == counts[False]
+    prog = _sched(dev, cfg, params, True).program("decode")
+    assert prog.launches == {"bitslice_mvm_scaled": 7 * cfg.num_layers,
+                             "paged_attention": cfg.num_layers}
+    prog.stage(*[np.zeros(t.shape, np.int32) for t in prog.inputs])
+    registry.reset_launches()
+    for _ in range(5):
+        prog.launch()
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {k: 5 * v for k, v in prog.launches.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_reset_keeps_the_graphs_valid(dev, mode):
+    """``_reset`` zeroes the pools in place, so the captured graphs stay
+    bound to live memory: a second run after it builds nothing and gives
+    the first run's completions, equal to the solo oracle's."""
+    from repro_torch.serve import oracle_completion, synthetic_workload
+    cfg, params = _served(dev, mode)
+    sched = _sched(dev, cfg, params, True)
+    reqs = synthetic_workload(5, cfg.vocab_size, min_prompt=3,
+                              max_prompt=20, max_new=6, seed=4)
+    first = sched.run(reqs)
+    progs = sched.step_programs()
+    pools = [t.data_ptr() for st in sched.states for t in st.values()]
+    sched._reset()
+    assert all(not t.any() for st in sched.states for t in st.values())
+    assert [t.data_ptr() for st in sched.states for t in st.values()] == pools
+    second = sched.run(reqs)
+    assert sched.step_programs() == progs
+    for req in reqs:
+        assert second[req.rid].tokens == first[req.rid].tokens \
+            == oracle_completion(sched.engine, req)

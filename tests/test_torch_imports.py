@@ -80,7 +80,7 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         aes.main(["--blocks", "256"])
 
 
-@pytest.mark.parametrize("mode", ["pum", "int8"])
+@pytest.mark.parametrize("mode", ["pum", "int8", "bf16"])
 def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
     res = serve.main(["--reduced", "--device", "cpu", "--pum-mode", mode,
                       "--batch-slots", "2", "--requests", "3",

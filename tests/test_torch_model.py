@@ -23,6 +23,12 @@ from repro_torch.models import lm as tlm
 # torch rounds after every op, and each bf16 ulp can move an int8
 # activation step; logits of magnitude ~0.5 agree within 5e-2.
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# bf16 mode's projections are float matmuls, whose f32 sums differ
+# across frameworks by summation order (~1e-7); where their K/V pass
+# through the bf16 pools, that can flip a cell's bf16 rounding (2^-8
+# relative), which moves f32 logits of magnitude ~0.5 by a few 1e-4
+# (int8/pum K/V are exact integer sums times equal scales: no flips)
+BF16_MODE_POOL_TOL = 2e-3
 
 
 def _models(mode, dtype):
@@ -41,12 +47,13 @@ def _models(mode, dtype):
     return jcfg, jp, tcfg, tp
 
 
-def _close(t, j, dtype):
-    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL[dtype],
+def _close(t, j, dtype, atol=None):
+    np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                               atol=TOL[dtype] if atol is None else atol,
                                rtol=0)
 
 
-@pytest.mark.parametrize("mode", ["pum", "int8"])
+@pytest.mark.parametrize("mode", ["pum", "int8", "bf16"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_logits_match(mode, dtype):
     jcfg, jp, tcfg, tp = _models(mode, dtype)
@@ -61,7 +68,7 @@ def test_prefill_logits_match(mode, dtype):
     _close(tl1, jl1, dtype)
 
 
-@pytest.mark.parametrize("mode", ["pum", "int8"])
+@pytest.mark.parametrize("mode", ["pum", "int8", "bf16"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_chunk_then_decode_match(mode, dtype):
     jcfg, jp, tcfg, tp = _models(mode, dtype)
@@ -92,8 +99,10 @@ def test_paged_chunk_then_decode_match(mode, dtype):
     td, ts = tlm.forward(tp, torch.from_numpy(nxt), tcfg, states=ts,
                          cache_index=torch.from_numpy(ci1), block_table=tt,
                          kv_len=max_len, last_only=True)
-    _close(tl, jl, dtype)
-    _close(td, jd, dtype)
+    atol = BF16_MODE_POOL_TOL if (mode, dtype) == ("bf16", "float32") \
+        else None
+    _close(tl, jl, dtype, atol)
+    _close(td, jd, dtype, atol)
     # the pools hold the same K/V (bf16 storage) for the written cells
     jk = np.asarray(js[0]["k_pool"], np.float32)
     for layer, st in enumerate(ts):

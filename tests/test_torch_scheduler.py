@@ -1,9 +1,10 @@
 """The port's continuous-batching scheduler against the JAX package's
-(``kernel_backend="xla"``): dense model x {pum, int8}, paged KV blocks
+(``kernel_backend="xla"``): dense model x {pum, int8, bf16}, paged KV blocks
 of 4, chunked prefill, three staggered greedy requests.
 
   * teacher forcing: JAX's greedy tokens fed through the port's prefill
-    and decode steps give per-step logits within ``LOGIT_TOL`` of JAX's;
+    and decode steps give per-step logits within ``LOGIT_TOL`` of JAX's
+    (``BF16_MODE_LOGIT_TOL`` in bf16 mode);
   * the port's scheduler emits JAX's tokens wherever JAX's top-2 logit
     margin exceeds 10x that tolerance (past a near-tie the two may
     legitimately diverge);
@@ -31,13 +32,17 @@ from repro_torch.serve.scheduler import SchedulerStalled
 # f32 logits: integer contractions are exact on equal inputs, the rest
 # differs by f32 summation order (~1e-7 at this size)
 LOGIT_TOL = 1e-4
+# bf16 mode's projections are float matmuls: their f32 summation-order
+# differences can flip the bf16 rounding of a cached K/V cell (2^-8
+# relative), which moves these logits by a few 1e-4
+BF16_MODE_LOGIT_TOL = 2e-3
 TRACE = [([3, 1, 4, 1, 5], 8, 0), ([9, 2, 6, 5, 3, 5, 8], 6, 1),
          ([7, 7], 7, 2)]
 KW = dict(dtype="float32", qkv_bias=True, tie_embeddings=True)
 SCHED = dict(num_slots=2, max_len=24, kv_block_size=4, chunked_prefill=True)
 
 
-@pytest.fixture(scope="module", params=["pum", "int8"])
+@pytest.fixture(scope="module", params=["pum", "int8", "bf16"])
 def ref(request):
     """JAX's scheduler run and per-step solo logits, built once per
     mode; and the port's params carried across by the bridge."""
@@ -62,8 +67,9 @@ def ref(request):
     tcfg = tsmall(pum=TPUM(mode=mode), **KW)
     params = bridge.params_from_numpy(
         to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
+    tol = BF16_MODE_LOGIT_TOL if mode == "bf16" else LOGIT_TOL
     return dict(mode=mode, tcfg=tcfg, params=params, tokens=tokens,
-                logits=logits)
+                logits=logits, tol=tol)
 
 
 def _margin(row):
@@ -85,9 +91,9 @@ def test_teacher_forced_logits_match(ref):
             steps.append(lg[0, -1])
         got = torch.stack(steps).numpy()
         want = ref["logits"][rid]
-        np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=0)
+        np.testing.assert_allclose(got, want, atol=ref["tol"], rtol=0)
         for i, row in enumerate(want):
-            if _margin(row) > 10 * LOGIT_TOL:
+            if _margin(row) > 10 * ref["tol"]:
                 assert int(got[i].argmax()) == ref["tokens"][rid][i]
 
 
@@ -106,7 +112,7 @@ def test_scheduler_tokens_match_jax_and_own_oracle(ref):
                                         Request(prompt, max_tokens))
         # cross-framework: equal while JAX's choice is not a near-tie
         for i, want in enumerate(ref["tokens"][rid]):
-            if _margin(ref["logits"][rid][i]) <= 10 * LOGIT_TOL:
+            if _margin(ref["logits"][rid][i]) <= 10 * ref["tol"]:
                 break
             assert got[i] == want, (rid, i, got, ref["tokens"][rid])
 
