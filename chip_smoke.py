@@ -47,13 +47,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to the bulk ciphertext, the FIPS-197 vectors through every path on
    the card, the card's busy share over one bulk encryption under the
    profiler, and (AES-128) the device time of each op of one round.
-7. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-6) must have launched there;
+7. cnn — ResNet-20 for CIFAR-10 at its published width (16/32/64
+   channels, 20 layers) on 1024 synthetic images, every conv an im2col
+   MVM: first K2's unpacked entry at each layer's shape (up to 2^20 rows,
+   past CUDA's 65535 CTAs on grid z; N down to 10) bit for bit against
+   its plain version, timed beside its byte bound and ``torch._int_mm``;
+   then the ``pum`` forward with exactly 22 K2 launches (and none of
+   K1), its logits bit-equal to the ``torch`` backend's and across two
+   runs, and finite; the float forward (f32 ``torch.matmul``, TF32 off)
+   and the two modes' argmax agreement; images/s of both; K2's share of
+   a forward's device time and the top kernels under the profiler; and
+   the paper's §7.5 agreement sweep (programming noise sigma in {0,
+   0.02, 0.05, 0.1, 0.3}, 256 images) with its gates: agreement
+   without noise at least 0.75, at sigma 0.3 no higher, noise drawn
+   (on differs from off) from the generator (the same seed gives the
+   same bits).
+8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-7) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
-   version.
+   version.  K2's row carries its rows at the CNN's layer shapes
+   (``cnn_shapes``).
 
-``--only kernels`` stops after phase 3 (bring-up of a kernel change).
+``--only kernels`` stops after phase 3 (bring-up of a kernel change);
+``--only cnn`` runs phases 1, 2 and 7 alone.
 """
 from __future__ import annotations
 
@@ -689,11 +706,10 @@ def backend_parity(sched) -> None:
                              f"greedy differs")
 
 
-def profiled(run) -> tuple[float, float, str] | None:
-    """``run()`` under ``torch.profiler``: (wall s, s the card spent in
-    kernels, the top kernels by time), or None when the profiler saw no
-    device time.  The profiler slows the host, so its wall time is not
-    an unprofiled run's; the kernel times are the card's."""
+def kernel_times(run):
+    """``run()`` under ``torch.profiler``: (wall s, device us by kernel
+    name).  The profiler slows the host, so its wall time is not an
+    unprofiled run's; the kernel times are the card's."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -709,12 +725,23 @@ def profiled(run) -> tuple[float, float, str] | None:
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             by_name[evt.name] += evt.time_range.elapsed_us()
+    return wall, by_name
+
+
+def top_kernels(by_name, n: int = 6) -> str:
+    return ", ".join(
+        f"{name.replace('void ', '').replace('(anonymous namespace)::', '')[:40]}"
+        f" {us / 1e3:.1f} ms" for name, us in by_name.most_common(n))
+
+
+def profiled(run) -> tuple[float, float, str] | None:
+    """``run()`` under ``torch.profiler``: (wall s, s the card spent in
+    kernels, the top kernels by time), or None when the profiler saw no
+    device time."""
+    wall, by_name = kernel_times(run)
     if not by_name:
         return None
-    top = ", ".join(
-        f"{name.replace('void ', '').replace('(anonymous namespace)::', '')[:40]}"
-        f" {us / 1e3:.1f} ms" for name, us in by_name.most_common(6))
-    return wall, sum(by_name.values()) / 1e6, top
+    return wall, sum(by_name.values()) / 1e6, top_kernels(by_name)
 
 
 def like(sched, cuda_graphs: bool):
@@ -994,6 +1021,215 @@ def aes_round_split(pt, key, dev) -> None:
         + f"; sum {total:.4f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the CNN path (ResNet-20 on CIFAR-10 shapes, paper §5.1, §7.5)
+# ---------------------------------------------------------------------------
+
+CNN_IMAGES = 1024
+CNN_WIDTH = 16
+SWEEP_IMAGES = 256
+SIGMAS = (0.0, 0.02, 0.05, 0.1, 0.3)
+# the JAX package's bound on agreement without noise (tests/test_apps.py)
+CLEAN_AGREEMENT = 0.75
+# K2's launches in one ResNet-20 forward: (layer, rows per image, K, N,
+# launches); the stride-2 conv im2cols at full size, then subsamples
+CNN_LAYERS = [("stem", 1024, 27, 16, 1),
+              ("stage-0 conv", 1024, 144, 16, 6),
+              ("s1b0.conv1", 256, 144, 32, 1),
+              ("stage-1 conv", 256, 288, 32, 5),
+              ("s1 projection", 256, 16, 32, 1),
+              ("s2b0.conv1", 64, 288, 64, 1),
+              ("stage-2 conv", 64, 576, 64, 5),
+              ("s2 projection", 64, 32, 64, 1),
+              ("classifier", 1, 64, 10, 1)]
+CNN_LAUNCHES = sum(layer[-1] for layer in CNN_LAYERS)     # 22
+
+
+def check_cnn_mvm(dev, gpu_name: str) -> list[dict]:
+    """K2's unpacked entry (planes sliced per call, N padded to 16) at
+    each ResNet-20 layer shape over CNN_IMAGES images, bit for bit
+    against its plain version, two calls bit-equal, timed beside its
+    byte bound and ``torch._int_mm`` on the recombined weight (K and N
+    padded to multiples of 8, as it requires; the padding not timed)."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.bitslice_mvm import ops
+    bw, _, int8_rate = peaks(gpu_name)
+    g = torch.Generator(device=dev).manual_seed(7)
+    props = registry.device_props(dev.index)
+    rows = []
+    for name, per_image, k, n, _ in CNN_LAYERS:
+        m = per_image * CNN_IMAGES
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+
+        def kern():
+            return ops.bitslice_mvm(x, wq, backend="cuda")
+
+        def plain():
+            return ops.bitslice_mvm(x, wq, backend="torch")
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want) or not deterministic(kern):
+            raise AssertionError(f"bitslice_mvm (unpacked) at {name} M={m} "
+                                 f"K={k} N={n}: max|diff| {err}, or two "
+                                 f"calls differ")
+        del got, want
+        plan = ops.mvm_plan(m, k, -(-n // ops.VEC) * ops.VEC, 4, props)
+        t = device_ms(kern, iters=10)
+        p = device_ms(plain, iters=3, reps=2)
+        k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+        xl = torch.zeros((max(m, 17), k8), dtype=torch.int8, device=dev)
+        xl[:m, :k] = x
+        wl = torch.zeros((k8, n8), dtype=torch.int8, device=dev)
+        wl[:k, :n] = wq.to(torch.int8)
+        lib = device_ms(lambda: torch._int_mm(xl, wl), iters=10)
+        s = 4                        # planes of 8-bit weights, 2-bit cells
+        nbytes = m * k + 4 * s * k * n + 4 * m * n
+        by_bytes, by_ops = nbytes / bw * 1e3, 2 * s * m * k * n / int8_rate \
+            * 1e3
+        bound = max(by_bytes, by_ops)
+        log(f"cnn mvm {name} M={m} K={k} N={n} S={s} (grid z "
+            f"{plan.grid_rows} CTAs over {plan.row_tiles} row tiles of "
+            f"{plan.mt}): exact, two calls bit-equal | kernel {t:.4f} ms "
+            f"(plain {p:.4f}, bound {bound:.4f}, {share(bound, t)} of "
+            f"bound) | _int_mm {lib:.4f} ms")
+        rows.append(dict(shape=f"{name} M={m} K={k} N={n} S={s}",
+                         max_abs_err=err, ms=t, plain_ms=p, bound_ms=bound,
+                         bound_by="bytes" if by_bytes >= by_ops
+                         else "operations", library_ms=lib))
+        del x, xl
+    return rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def cnn_phase(dev, gpu_name: str, smi: str) -> tuple[dict[str, int],
+                                                      list[dict]]:
+    """Phase 7: ResNet-20 at its published width on the card.  Returns
+    K2's launches on the path (the gated forward) and its rows at the
+    layer shapes."""
+    import gc
+    import torch
+    from repro_torch.apps import resnet_app
+    from repro_torch.kernels import registry
+    from repro_torch.models import resnet
+    rows = check_cnn_mvm(dev, gpu_name)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log(f"cnn: torch.backends.cuda.matmul.allow_tf32={tf32} (the f32 "
+        f"reference runs in full f32)")
+    if tf32:
+        raise AssertionError("f32 matmuls would run on TF32")
+    gen = torch.Generator(dev).manual_seed(0)
+    params = resnet.resnet20_init(gen, width=CNN_WIDTH, device=dev)
+    x, _ = resnet_app.synthetic_images(gen, CNN_IMAGES, device=dev)
+    n_weights = sum(t.numel() for t in _leaves(params) if t.ndim == 2)
+    pum = resnet_app.pum_config(0.0)
+
+    def forward(cfg):
+        with torch.no_grad():
+            return resnet.resnet20_apply(params, x, cfg)
+
+    # the main path: counts set to 0 just before, read just after
+    registry.reset_launches()
+    logits = forward(pum)
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    if launches != {"bitslice_mvm": CNN_LAUNCHES}:
+        raise AssertionError(f"cnn: launches {launches}, want "
+                             f"{CNN_LAUNCHES} of bitslice_mvm and no other")
+    with registry.use_backend("torch"):
+        plain = forward(pum)
+    again = forward(pum)
+    finite = bool(torch.isfinite(logits).all())
+    same_plain, same_again = torch.equal(logits, plain), \
+        torch.equal(logits, again)
+    log(f"cnn: ResNet-20 width {CNN_WIDTH} ({n_weights} weights), "
+        f"{CNN_IMAGES} images, pum: {launches['bitslice_mvm']} bitslice_mvm "
+        f"launches a forward, none of bitslice_mvm_scaled; logits "
+        f"{tuple(logits.shape)} bit-equal to the torch backend's: "
+        f"{same_plain} (max|diff| "
+        f"{(logits - plain).abs().max().item():.3g}), two runs bit-equal: "
+        f"{same_again}, finite: {finite}")
+    if not (finite and same_plain and same_again
+            and logits.shape == (CNN_IMAGES, 10)):
+        raise AssertionError("cnn: pum forward failed its gates")
+    del plain, again
+    floats = forward(resnet_app.FLOAT)
+    agree = float((logits.argmax(-1) == floats.argmax(-1)).float().mean())
+    rel = ((logits - floats).abs().max() / floats.abs().max()).item()
+    log(f"cnn: pum vs float (f32 torch.matmul) on {CNN_IMAGES} images: "
+        f"argmax agreement {agree:.4f}, max|diff| / max|float logit| "
+        f"{rel:.4f}")
+    del floats
+    ms = {mode: event_ms(lambda: forward(cfg), reps=5)
+          for mode, cfg in (("pum", pum), ("bf16", resnet_app.FLOAT))}
+    log("cnn: " + ", ".join(f"{mode} {CNN_IMAGES / ms[mode] * 1e3:.1f} "
+                            f"images/s ({ms[mode]:.3f} ms a forward of "
+                            f"{CNN_IMAGES})" for mode in ms)
+        + f" on {smi}")
+    wall, by_name = kernel_times(lambda: forward(pum))
+    if by_name:
+        total = sum(by_name.values()) / 1e3
+        k2 = sum(us for name, us in by_name.items()
+                 if "bitslice_mvm_kernel" in name) / 1e3
+        log(f"cnn profile pum forward: device {total:.3f} ms, K2 "
+            f"{k2:.3f} ms ({100 * k2 / total:.1f} %) over "
+            f"{CNN_LAUNCHES} launches, wall {wall * 1e3:.3f} ms under the "
+            f"profiler ({100 * total / 1e3 / wall:.1f} % busy); top 5: "
+            f"{top_kernels(by_name, 5)}")
+    else:
+        log("cnn profile: the profiler saw no device time (not measured)")
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the §7.5 agreement sweep, as benchmarks/noise_accuracy.py runs it
+    xs = x[:SWEEP_IMAGES]
+    agreement = {}
+    for sigma in SIGMAS:
+        agreement[sigma] = resnet_app.agreement(
+            params, xs, sigma, torch.Generator(dev).manual_seed(1))
+    noisy_cfg = resnet_app.pum_config(0.05)
+
+    def noisy(seed):
+        with torch.no_grad():
+            return resnet.resnet20_apply(
+                params, xs, noisy_cfg,
+                generator=torch.Generator(dev).manual_seed(seed))
+
+    t0 = time.perf_counter()
+    a = noisy(1)
+    torch.cuda.synchronize()
+    noisy_s = time.perf_counter() - t0
+    b, c = noisy(1), noisy(2)
+    with torch.no_grad():
+        clean = resnet.resnet20_apply(params, xs, pum)
+    drawn, repeat, reseeded = not torch.equal(a, clean), torch.equal(a, b), \
+        not torch.equal(a, c)
+    log(f"cnn noise sweep (width {CNN_WIDTH}, {SWEEP_IMAGES} images, SAR "
+        f"ADC 10 bits): agreement with the float model "
+        + ", ".join(f"sigma={s}: {v:.4f}" for s, v in agreement.items())
+        + f"; noise on (sigma 0.05) differs from off: {drawn}, the same "
+        f"seed twice bit-equal: {repeat}, another seed differs: {reseeded}; "
+        f"one noisy forward {noisy_s:.2f} s (ACE simulation)")
+    if not (agreement[0.0] >= CLEAN_AGREEMENT
+            and agreement[0.3] <= agreement[0.0] and drawn and repeat
+            and reseeded):
+        raise AssertionError("cnn: the noise sweep failed its gates")
+    return {"bitslice_mvm": launches["bitslice_mvm"]}, rows
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -1024,7 +1260,7 @@ OFF_MAIN_PATH = {"gf2_mvm"}
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None)
+    ap.add_argument("--only", choices=["kernels", "cnn"], default=None)
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -1057,6 +1293,13 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if args.only == "cnn":
+        cnn_launches, cnn_rows = cnn_phase(dev, gpu_name, smi)
+        log(json.dumps({"kernels": {"bitslice_mvm": {
+            "launches": cnn_launches["bitslice_mvm"],
+            "cnn_shapes": cnn_rows}}}))
+        return 0
+
     # -- 3. kernels
     rows = check_mvm(dev, gpu_name)
     rows["paged_attention"] = check_attention(dev, gpu_name)
@@ -1071,6 +1314,11 @@ def main(argv=None) -> int:
     for k, v in aes_phase(dev, smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 6 done at {time.perf_counter() - start:.1f} s")
+    cnn_launches, rows["bitslice_mvm"]["cnn_shapes"] = cnn_phase(
+        dev, gpu_name, smi)
+    for k, v in cnn_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 7 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -1,1 +1,2 @@
-"""The paper's applications on the port (AES, paper §5.3)."""
+"""The paper's applications on the port (AES, paper §5.3; ResNet-20,
+§5.1 and §7.5)."""

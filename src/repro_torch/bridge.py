@@ -81,3 +81,12 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig,
     out["blocks"] = [_convert(tree["blocks"][j], dev, g)
                      for g in range(groups) for j in range(period)]
     return out
+
+
+def resnet_params_from_numpy(tree: dict[str, Any],
+                             device: str | torch.device = "cuda",
+                             ) -> dict[str, Any]:
+    """The port's ResNet params (``models/resnet.py``) from a numpy copy
+    of a JAX ResNet param tree: the same nested dicts, tensors for
+    arrays."""
+    return _convert(tree, resolve_device(device), None)

@@ -4,17 +4,24 @@ Every linear layer routes through :func:`pum_linear`, which executes in
 one of three modes (``PUMConfig.mode``):
 
   bf16 — plain dense matmul (``torch.matmul``).
-  int8 — symmetric int8 x int8 -> int32 matmul against a prepacked
-         weight: the single-plane special case of bit-slicing.
-  pum  — bit-sliced execution against prepacked differential planes,
-         per-plane integer products recombined by shift-and-add, with
-         the per-row dequant scale fused into the kernel's epilogue.
+  int8 — symmetric int8 x int8 -> int32 matmul: the single-plane
+         special case of bit-slicing.
+  pum  — bit-sliced execution over differential planes, per-plane
+         integer products recombined by shift-and-add; with a prepacked
+         weight the per-row dequant scale is fused into the kernel's
+         epilogue.  With ``noise.enable`` the ACE simulation
+         (``core/analog.py``: ADC and non-idealities) runs instead,
+         drawing its noise from the ``generator`` argument (the JAX
+         package's ``key``).
 
-Serving only: ``int8``/``pum`` take a prepacked
-:class:`~repro_torch.core.prepack.PackedLinear`.  The raw-weight QAT
-paths, the analog noise simulation (``core/analog.py`` in the JAX
-package) and tensor parallelism are not ported yet and raise
-``NotImplementedError``.
+``int8``/``pum`` take a prepacked
+:class:`~repro_torch.core.prepack.PackedLinear` (serving) or a raw
+float weight, quantised on every call as the JAX package's forward
+does.  The raw-weight forward returns the value the JAX package's
+straight-through forward returns (``yq``) and computes no shadow float
+matmul; its gradient (QAT) is not ported yet, so it raises
+``NotImplementedError`` where autograd would need one.  Tensor
+parallelism is not ported.
 
 Kernel dispatch (:mod:`repro_torch.kernels.registry`): on CUDA tensors
 the ``cuda`` backend runs the ``bitslice_mvm`` kernels; the ``torch``
@@ -27,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import PUMConfig
-from repro_torch.core import bitslice
+from repro_torch.core import analog, bitslice
 from repro_torch.core.prepack import PackedLinear
 from repro_torch.kernels import registry
 from repro_torch.kernels.bitslice_mvm import ops as mvm_ops
@@ -51,6 +58,53 @@ def _matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+def _matmul_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dynamic activation quant + per-column weight quant, int32 sums."""
+    xq, xs = _quantize_act(x, 8)
+    wq, ws = bitslice.quantize_symmetric(w.to(torch.float32), 8, axis=0)
+    if _mvm_backend(x) == KernelBackend.CUDA:
+        # the whole quantised weight is one plane (bits_per_slice=8)
+        acc = mvm_ops.bitslice_mvm(xq, wq, weight_bits=8, bits_per_slice=8,
+                                   backend=KernelBackend.CUDA)
+    else:
+        acc = bitslice.int_matmul(xq, wq)
+    y = acc.to(torch.float32) * (xs * ws)
+    return y.to(x.dtype)
+
+
+def _crossbar(xq: torch.Tensor, wq: torch.Tensor, cfg: PUMConfig,
+              weight_bits: int, bits_per_slice: int,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """The ACE simulation of ``xq @ wq`` over rows of ``xq``."""
+    acc = analog.crossbar_mvm(
+        xq.reshape(-1, xq.shape[-1]), wq, weight_bits=weight_bits,
+        bits_per_slice=bits_per_slice, input_bits=cfg.input_bits,
+        adc=cfg.adc, noise=cfg.noise, generator=generator)
+    return acc.reshape(xq.shape[:-1] + (wq.shape[-1],))
+
+
+def _matmul_pum(x: torch.Tensor, w: torch.Tensor, cfg: PUMConfig,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """Bit-sliced path with a per-tensor weight scale, quantised per
+    call: exact (K2 or its plain version) unless noise is enabled, in
+    which case the ACE simulation runs."""
+    xq, xs = _quantize_act(x, cfg.input_bits)
+    wq, ws = bitslice.quantize_symmetric(w.to(torch.float32),
+                                         cfg.weight_bits)
+    if cfg.noise.enable:
+        acc = _crossbar(xq, wq, cfg, cfg.weight_bits, cfg.bits_per_slice,
+                        generator)
+    elif _mvm_backend(x) == KernelBackend.CUDA:
+        acc = mvm_ops.bitslice_mvm(xq, wq, weight_bits=cfg.weight_bits,
+                                   bits_per_slice=cfg.bits_per_slice,
+                                   backend=KernelBackend.CUDA)
+    else:
+        acc = bitslice.bitsliced_matmul_exact(xq, wq, cfg.weight_bits,
+                                              cfg.bits_per_slice)
+    y = acc.to(torch.float32) * (xs * ws)
+    return y.to(x.dtype)
+
+
 def _matmul_int8_packed(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     xq, xs = _quantize_act(x, 8)
     if _mvm_backend(x) == KernelBackend.CUDA:
@@ -64,10 +118,13 @@ def _matmul_int8_packed(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def _matmul_pum_packed(x: torch.Tensor, w: PackedLinear,
-                       cfg: PUMConfig) -> torch.Tensor:
+def _matmul_pum_packed(x: torch.Tensor, w: PackedLinear, cfg: PUMConfig,
+                       generator: torch.Generator | None) -> torch.Tensor:
     xq, xs = _quantize_act(x, cfg.input_bits)
-    if _mvm_backend(x) == KernelBackend.CUDA:
+    if cfg.noise.enable:
+        acc = _crossbar(xq, w.wq.to(torch.int32), cfg, w.weight_bits,
+                        w.bits_per_slice, generator)
+    elif _mvm_backend(x) == KernelBackend.CUDA:
         # the fused tile: plane recombination + per-row dequant scale in
         # one kernel.  pum's scale is per tensor ([1, 1]), so
         # ``xs * w.scale`` is a pure per-row scale and the fusion is
@@ -77,41 +134,47 @@ def _matmul_pum_packed(x: torch.Tensor, w: PackedLinear,
             xq, w.planes, xs * w.scale, bits_per_slice=w.bits_per_slice,
             backend=KernelBackend.CUDA)
         return y.to(x.dtype)
-    x_bound = (1 << (cfg.input_bits - 1)) - 1
-    w_bound = (1 << (w.weight_bits - 1)) - 1
-    acc = bitslice.int_matmul(xq, w.wq, x_bound=x_bound, w_bound=w_bound)
+    else:
+        x_bound = (1 << (cfg.input_bits - 1)) - 1
+        w_bound = (1 << (w.weight_bits - 1)) - 1
+        acc = bitslice.int_matmul(xq, w.wq, x_bound=x_bound,
+                                  w_bound=w_bound)
     y = acc.to(torch.float32) * (xs * w.scale)
     return y.to(x.dtype)
 
 
 def pum_linear(x: torch.Tensor, w: torch.Tensor | PackedLinear,
                cfg: PUMConfig, bias: torch.Tensor | None = None,
-               ) -> torch.Tensor:
+               generator: torch.Generator | None = None) -> torch.Tensor:
     """y = x @ w (+ bias) under the configured execution mode.
 
-    x: [..., K]; w: [K, N] float weight (bf16 mode) or a per-layer
-    :class:`PackedLinear` (int8/pum modes)."""
+    x: [..., K]; w: [K, N] float weight, or a per-layer
+    :class:`PackedLinear` (int8/pum modes).  ``generator`` draws the
+    analog noise of ``pum`` with ``noise.enable`` (on x's device)."""
     packed = isinstance(w, PackedLinear)
-    if cfg.noise.enable:
-        raise NotImplementedError(
-            "the analog noise simulation is not ported yet")
     if cfg.mode == "bf16":
         if packed:
             raise ValueError("bf16 mode has no packed representation")
         y = _matmul_bf16(x, w)
     elif cfg.mode in ("int8", "pum"):
-        if not packed:
+        if packed:
+            if w.ndim != 2:
+                raise ValueError(f"pum_linear expects a per-layer "
+                                 f"PackedLinear [K, N], got shape {w.shape}")
+            if w.mode != cfg.mode:
+                raise ValueError(f"weight packed for {w.mode!r}, config "
+                                 f"says {cfg.mode!r}")
+        elif torch.is_grad_enabled() and (x.requires_grad
+                                          or w.requires_grad):
             raise NotImplementedError(
-                f"{cfg.mode} with a raw float weight is the QAT path, not "
-                f"ported yet; prepack the weights for serving")
-        if w.ndim != 2:
-            raise ValueError(f"pum_linear expects a per-layer PackedLinear "
-                             f"[K, N], got shape {w.shape}")
-        if w.mode != cfg.mode:
-            raise ValueError(f"weight packed for {w.mode!r}, config says "
-                             f"{cfg.mode!r}")
-        y = _matmul_int8_packed(x, w) if cfg.mode == "int8" \
-            else _matmul_pum_packed(x, w, cfg)
+                f"the gradient of {cfg.mode} with a raw float weight (the "
+                f"QAT straight-through estimator) is not ported yet; run "
+                f"the forward under torch.no_grad()")
+        if cfg.mode == "int8":
+            y = _matmul_int8_packed(x, w) if packed else _matmul_int8(x, w)
+        else:
+            y = _matmul_pum_packed(x, w, cfg, generator) if packed \
+                else _matmul_pum(x, w, cfg, generator)
     else:
         raise ValueError(cfg.mode)
     if bias is not None:

@@ -20,7 +20,17 @@
 //   * A CTA owns BN = 128 output columns, so every K row of a plane it
 //     reads is one full 128-byte line, and MT rows of x (1, 4, 8 or 16,
 //     chosen by the plan from M, so no registers go to rows that do not
-//     exist; larger M takes several row tiles).
+//     exist; larger M takes several row tiles).  Row tiles sit on grid z,
+//     which CUDA caps at 65535 CTAs (MAX_GRID_Z), so past that a CTA
+//     walks the row tiles blockIdx.z, blockIdx.z + gridDim.z, ... in
+//     turn (WALK, row tiles of 16 only): one launch takes any M (a
+//     ResNet-20 conv over 1024 images has 1024 x 32 x 32 rows, 65536
+//     tiles of 16).  The walk is an instantiation of its own: a loop
+//     around the pipeline in every instantiation took each to the
+//     128-register cap of two CTAs an SM, with spills in half of them,
+//     and slowed K2 at decode by a third on an H100.  Up to 65535 tiles,
+//     as at every decode and prefill shape, each CTA takes one tile in
+//     a loop that never repeats, which compiles as the single tile did.
 //   * Split-K over a thread block cluster: where the output tiles alone
 //     leave SMs idle, the plan cuts the K range into `splits` parts, one
 //     CTA each, and the parts of one output tile form one cluster (grid
@@ -79,7 +89,7 @@
 #if !defined(BN) || !defined(BK) || !defined(VEC) || !defined(MAX_S) || \
     !defined(CTAS_PER_SM) || !defined(SHALLOW) || !defined(DEEP) ||        \
     !defined(ROW_TILE0) || !defined(ROW_TILE1) || !defined(ROW_TILE2) ||  \
-    !defined(ROW_TILE3)
+    !defined(ROW_TILE3) || !defined(MAX_GRID_Z)
 #error "build with the -D macros of bitslice_mvm/ops.py (kernels/_build.py)"
 #endif
 #define ROW_TILES ROW_TILE0, ROW_TILE1, ROW_TILE2, ROW_TILE3
@@ -241,7 +251,7 @@ __device__ __forceinline__ void stage_mma(const unsigned char* base, int S,
   }
 }
 
-template <int MT, int STAGES, bool SCALED>
+template <int MT, int STAGES, bool SCALED, bool WALK>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
 bitslice_mvm_kernel(const int8_t* __restrict__ x,
                     const int8_t* __restrict__ planes,
@@ -257,119 +267,129 @@ bitslice_mvm_kernel(const int8_t* __restrict__ x,
   const int split = blockIdx.x;            // rank in the cluster
   const int splits = gridDim.x;
   const int n0 = blockIdx.y * BN;
-  const int m0 = blockIdx.z * MT;
   const int ktiles = (K + BK - 1) / BK;
   const int kt0 = (int)((long long)split * ktiles / splits);
   const int kt1 = (int)((long long)(split + 1) * ktiles / splits);
   const int sb = stage_bytes(S, MT);
-
-  for (int i = tid; i < MT * BN; i += THREADS) (&red[0][0])[i] = 0;
-
-  // stage a K tile: plane rows (8 chunks of 16 B per 128-byte row, chunk
-  // c at c ^ swizzle(row)) and x rows; chunks past K, N, M or the x row
-  // are zero-filled
-  auto issue = [&](int kt, int slot) {
-    unsigned char* base = smem + (size_t)slot * sb;
-    const int k0 = kt * BK;
-    const int pchunks = S * BK * (BN / VEC);
-    for (int c = tid; c < pchunks; c += THREADS) {
-      const int part = c % (BN / VEC);
-      const int r = c / (BN / VEC);            // s * BK + kk
-      const int s = r / BK;
-      const int k = k0 + r % BK;
-      const int n = n0 + part * VEC;
-      const bool ok = k < K && n < N;
-      const int8_t* src = ok ? planes + ((size_t)s * K + k) * N + n : planes;
-      cp_async16(base + r * BN + (part ^ swizzle<TENSOR>(r)) * VEC, src, ok);
-    }
-    unsigned char* xb = base + S * BK * BN;
-    for (int c = tid; c < MT * (BK / VEC); c += THREADS) {
-      const int m = c / (BK / VEC);
-      const int k = k0 + (c % (BK / VEC)) * VEC;
-      const bool ok = m0 + m < M && k < ldx;
-      const int8_t* src = ok ? x + (size_t)(m0 + m) * ldx + k : x;
-      cp_async16(xb + m * BK + (c % (BK / VEC)) * VEC, src, ok);
-    }
-  };
-
-  // the sums of this thread's outputs (stage_dp4a and stage_mma say which)
-  int acc[TENSOR ? 4 : MT][4];
-#pragma unroll
-  for (int i = 0; i < (TENSOR ? 4 : MT); ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-
-  const int nt = kt1 - kt0;
-#pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < nt) issue(kt0 + j, j);
-    cp_commit();
-  }
-  for (int it = 0; it < nt; ++it) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();
-    if (it + STAGES - 1 < nt)
-      issue(kt0 + it + STAGES - 1, (it + STAGES - 1) % STAGES);
-    cp_commit();
-    const unsigned char* base = smem + (size_t)(it % STAGES) * sb;
-    if constexpr (TENSOR)
-      stage_mma<MT>(base, S, bps, acc);
-    else
-      stage_dp4a<MT>(base, S, bps, acc);
-  }
-  cp_wait<0>();
-
-  // the warps that share an output meet in shared memory
-  const int lane = tid % 32;
-  if constexpr (TENSOR) {
-    const int g = lane / 4, t = lane % 4;
-    const int wc = tid / 32 / 2 * WCOLS;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = g + 8 * (e / 2);
-        if (m < MT)
-          atomicAdd(&red[m][wc + 4 * (2 * t + e % 2) + j], acc[j][e]);
-      }
-  } else {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) atomicAdd(&red[m][lane * 4 + c], acc[m][c]);
-  }
-
-  // the cluster's K parts meet: CTA `split` finishes every splits-th
-  // block of THREADS outputs of the tile, summing the parts in rank order
   cg::cluster_group cluster = cg::this_cluster();
-  if (splits > 1)
-    cluster.sync();
-  else
-    __syncthreads();
-  for (int i = split * THREADS + tid; i < MT * BN; i += splits * THREADS) {
-    const int m = i / BN, c = i % BN;
-    if (m0 + m >= M || n0 + c >= N) continue;
-    int sum = 0;
-    if (splits == 1)
-      sum = (&red[0][0])[i];
+
+  // the row tiles of this CTA, gridDim.z apart (one unless WALK); a
+  // cluster's CTAs share blockIdx.z, so they walk the same tiles and
+  // meet at every barrier
+  for (int m0 = blockIdx.z * MT; m0 < M; m0 += gridDim.z * MT) {
+    for (int i = tid; i < MT * BN; i += THREADS) (&red[0][0])[i] = 0;
+
+    // stage a K tile: plane rows (8 chunks of 16 B per 128-byte row, chunk
+    // c at c ^ swizzle(row)) and x rows; chunks past K, N, M or the x row
+    // are zero-filled
+    auto issue = [&](int kt, int slot) {
+      unsigned char* base = smem + (size_t)slot * sb;
+      const int k0 = kt * BK;
+      const int pchunks = S * BK * (BN / VEC);
+      for (int c = tid; c < pchunks; c += THREADS) {
+        const int part = c % (BN / VEC);
+        const int r = c / (BN / VEC);            // s * BK + kk
+        const int s = r / BK;
+        const int k = k0 + r % BK;
+        const int n = n0 + part * VEC;
+        const bool ok = k < K && n < N;
+        const int8_t* src = ok ? planes + ((size_t)s * K + k) * N + n : planes;
+        cp_async16(base + r * BN + (part ^ swizzle<TENSOR>(r)) * VEC, src, ok);
+      }
+      unsigned char* xb = base + S * BK * BN;
+      for (int c = tid; c < MT * (BK / VEC); c += THREADS) {
+        const int m = c / (BK / VEC);
+        const int k = k0 + (c % (BK / VEC)) * VEC;
+        const bool ok = m0 + m < M && k < ldx;
+        const int8_t* src = ok ? x + (size_t)(m0 + m) * ldx + k : x;
+        cp_async16(xb + m * BK + (c % (BK / VEC)) * VEC, src, ok);
+      }
+    };
+
+    // the sums of this thread's outputs (stage_dp4a and stage_mma say which)
+    int acc[TENSOR ? 4 : MT][4];
+#pragma unroll
+    for (int i = 0; i < (TENSOR ? 4 : MT); ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0;
+
+    const int nt = kt1 - kt0;
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (j < nt) issue(kt0 + j, j);
+      cp_commit();
+    }
+    for (int it = 0; it < nt; ++it) {
+      cp_wait<STAGES - 2>();
+      __syncthreads();
+      if (it + STAGES - 1 < nt)
+        issue(kt0 + it + STAGES - 1, (it + STAGES - 1) % STAGES);
+      cp_commit();
+      const unsigned char* base = smem + (size_t)(it % STAGES) * sb;
+      if constexpr (TENSOR)
+        stage_mma<MT>(base, S, bps, acc);
+      else
+        stage_dp4a<MT>(base, S, bps, acc);
+    }
+    cp_wait<0>();
+
+    // the warps that share an output meet in shared memory
+    const int lane = tid % 32;
+    if constexpr (TENSOR) {
+      const int g = lane / 4, t = lane % 4;
+      const int wc = tid / 32 / 2 * WCOLS;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = g + 8 * (e / 2);
+          if (m < MT)
+            atomicAdd(&red[m][wc + 4 * (2 * t + e % 2) + j], acc[j][e]);
+        }
+    } else {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) atomicAdd(&red[m][lane * 4 + c], acc[m][c]);
+    }
+
+    // the cluster's K parts meet: CTA `split` finishes every splits-th
+    // block of THREADS outputs of the tile, summing the parts in rank order
+    if (splits > 1)
+      cluster.sync();
     else
-      for (int r = 0; r < splits; ++r)
-        sum += cluster.map_shared_rank(&red[0][0], r)[i];
-    const size_t o = (size_t)(m0 + m) * N + n0 + c;
-    if (SCALED)
-      static_cast<float*>(out)[o] = __int2float_rn(sum) * row_scale[m0 + m];
-    else
-      static_cast<int*>(out)[o] = sum;
+      __syncthreads();
+    for (int i = split * THREADS + tid; i < MT * BN; i += splits * THREADS) {
+      const int m = i / BN, c = i % BN;
+      if (m0 + m >= M || n0 + c >= N) continue;
+      int sum = 0;
+      if (splits == 1)
+        sum = (&red[0][0])[i];
+      else
+        for (int r = 0; r < splits; ++r)
+          sum += cluster.map_shared_rank(&red[0][0], r)[i];
+      const size_t o = (size_t)(m0 + m) * N + n0 + c;
+      if (SCALED)
+        static_cast<float*>(out)[o] = __int2float_rn(sum) * row_scale[m0 + m];
+      else
+        static_cast<int*>(out)[o] = sum;
+    }
+    // no CTA leaves, or clears `red` for its next tile, while its part
+    // is read
+    if (splits > 1)
+      cluster.sync();
+    else if (WALK)
+      __syncthreads();
+    if constexpr (!WALK) break;
   }
-  if (splits > 1) cluster.sync();  // no CTA leaves while its part is read
 }
 
-template <int MT, int STAGES, bool SCALED>
+template <int MT, int STAGES, bool SCALED, bool WALK>
 int launch(const int8_t* x, const int8_t* planes, const float* scale,
            void* out, int M, int K, int N, int ldx, int S, int bps,
-           int splits, int smem, cudaStream_t st) {
+           int splits, int grid_rows, int smem, cudaStream_t st) {
   if (smem < STAGES * stage_bytes(S, MT)) return (int)cudaErrorInvalidValue;
-  auto kern = bitslice_mvm_kernel<MT, STAGES, SCALED>;
+  auto kern = bitslice_mvm_kernel<MT, STAGES, SCALED, WALK>;
   // the shared-memory attribute, set once per device and size
   static int attr_set[MAX_DEVICES] = {};
   int dev = 0;
@@ -385,7 +405,11 @@ int launch(const int8_t* x, const int8_t* planes, const float* scale,
     if (err != cudaSuccess) return (int)err;
     attr_set[dev] = smem;
   }
-  const dim3 grid(splits, (N + BN - 1) / BN, (M + MT - 1) / MT);
+  // one tile a CTA, or (WALK) fewer CTAs than tiles
+  if (WALK != (grid_rows < (M + MT - 1) / MT) ||
+      grid_rows > (M + MT - 1) / MT)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(splits, (N + BN - 1) / BN, grid_rows);
   if (splits == 1) {
     kern<<<grid, THREADS, smem, st>>>(x, planes, scale, out, M, K, N, ldx,
                                       S, bps);
@@ -413,11 +437,17 @@ int launch(const int8_t* x, const int8_t* planes, const float* scale,
 template <int STAGES, bool SCALED, int... MTS>
 int launch_rows(int mt, const int8_t* x, const int8_t* planes,
                 const float* scale, void* out, int M, int K, int N, int ldx,
-                int S, int bps, int splits, int smem, cudaStream_t st) {
+                int S, int bps, int splits, int grid_rows, int smem,
+                cudaStream_t st) {
+  constexpr int WALK_MT = ROW_TILE3;        // past 65535 tiles M > 16
+  if (mt == WALK_MT && grid_rows < (M + mt - 1) / mt)
+    return launch<WALK_MT, STAGES, SCALED, true>(x, planes, scale, out, M, K,
+                                                 N, ldx, S, bps, splits,
+                                                 grid_rows, smem, st);
   int r = (int)cudaErrorInvalidValue;
-  ((mt == MTS && (r = launch<MTS, STAGES, SCALED>(
+  ((mt == MTS && (r = launch<MTS, STAGES, SCALED, false>(
                       x, planes, scale, out, M, K, N, ldx, S, bps, splits,
-                      smem, st), true)) ||
+                      grid_rows, smem, st), true)) ||
    ...);
   return r;
 }
@@ -426,12 +456,12 @@ int launch_rows(int mt, const int8_t* x, const int8_t* planes,
 template <bool SCALED, int... DEPTHS>
 int launch_stages(int stages, int mt, const int8_t* x, const int8_t* planes,
                   const float* scale, void* out, int M, int K, int N,
-                  int ldx, int S, int bps, int splits, int smem,
-                  cudaStream_t st) {
+                  int ldx, int S, int bps, int splits, int grid_rows,
+                  int smem, cudaStream_t st) {
   int r = (int)cudaErrorInvalidValue;
   ((stages == DEPTHS && (r = launch_rows<DEPTHS, SCALED, ROW_TILES>(
                              mt, x, planes, scale, out, M, K, N, ldx, S,
-                             bps, splits, smem, st), true)) ||
+                             bps, splits, grid_rows, smem, st), true)) ||
    ...);
   return r;
 }
@@ -440,16 +470,19 @@ int launch_stages(int stages, int mt, const int8_t* x, const int8_t* planes,
 
 // The plan, from ops.mvm_plan: mt rows of x per CTA (one of ROW_TILES),
 // stages the ring's depth (SHALLOW or DEEP), splits the K parts =
-// the cluster's size, smem the dynamic shared bytes of the ring.
+// the cluster's size, grid_rows the CTAs on grid z (each walking row
+// tiles grid_rows apart), smem the dynamic shared bytes of the ring.
 extern "C" int bitslice_mvm_launch(const void* x, const void* planes,
                                    const void* row_scale, void* out, int M,
                                    int K, int N, int ldx, int S, int bps,
-                                   int mt, int stages, int splits, int smem,
-                                   int scaled, void* stream) {
+                                   int mt, int stages, int splits,
+                                   int grid_rows, int smem, int scaled,
+                                   void* stream) {
   const int ktiles = (K + BK - 1) / BK;
   if (M <= 0 || K <= 0 || N <= 0 || S < 1 ||
       S > MAX_S || N % VEC != 0 || ldx < K || ldx % VEC != 0 || splits < 1 ||
-      splits > ktiles || (scaled && row_scale == nullptr))
+      splits > ktiles || grid_rows < 1 || grid_rows > MAX_GRID_Z ||
+      (scaled && row_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xp = static_cast<const int8_t*>(x);
@@ -457,8 +490,9 @@ extern "C" int bitslice_mvm_launch(const void* x, const void* planes,
   const float* sp = static_cast<const float*>(row_scale);
   if (scaled)
     return launch_stages<true, STAGE_DEPTHS>(stages, mt, xp, pp, sp, out, M,
-                                             K, N, ldx, S, bps, splits, smem,
-                                             st);
+                                             K, N, ldx, S, bps, splits,
+                                             grid_rows, smem, st);
   return launch_stages<false, STAGE_DEPTHS>(stages, mt, xp, pp, sp, out, M, K,
-                                            N, ldx, S, bps, splits, smem, st);
+                                            N, ldx, S, bps, splits, grid_rows,
+                                            smem, st);
 }

@@ -1,5 +1,7 @@
 """Public wrappers for the bitslice_mvm kernel family.
 
+``bitslice_mvm`` (int32 out from a signed quantised weight, sliced into
+planes per call: the raw-weight ``pum`` and ``int8`` forwards),
 ``bitslice_mvm_planes`` (int32 out; the ``int8`` packed path as one
 plane with ``bits_per_slice=8``) and ``bitslice_mvm_planes_scaled``
 (the fused ``pum`` decode tile, f32 out) take any leading dims on x,
@@ -17,6 +19,7 @@ import typing
 
 import torch
 
+from repro_torch.core import bitslice
 from repro_torch.kernels import _build, registry
 from repro_torch.kernels.bitslice_mvm.ref import (bitslice_mvm_ref,
                                                   bitslice_mvm_scaled_ref)
@@ -30,14 +33,17 @@ NAME_SCALED = "bitslice_mvm_scaled"      # launch counter: fused scale (K1)
 # a tile of BN columns and BK K rows a stage, ROW_TILES rows of x, a
 # ring of SHALLOW stages (DEEP with one plane, whose stages are small),
 # two CTAs per SM (its launch bounds), at most MAX_SLICES planes, N in
-# vectors of VEC bytes
+# vectors of VEC bytes, at most MAX_GRID_Z CTAs of row tiles (CUDA's
+# limit on gridDim.z)
 BN, BK, SHALLOW, DEEP = 128, 64, 3, 8
 ROW_TILES = (1, 4, 8, 16)
 CTAS_PER_SM = 2
 MAX_SLICES = 4
 VEC = 16
+MAX_GRID_Z = 65535
 NVCC_DEFINES = dict(BN=BN, BK=BK, VEC=VEC, MAX_S=MAX_SLICES,
                     CTAS_PER_SM=CTAS_PER_SM, SHALLOW=SHALLOW, DEEP=DEEP,
+                    MAX_GRID_Z=MAX_GRID_Z,
                     **{f"ROW_TILE{i}": t for i, t in enumerate(ROW_TILES)})
 # split-K parts form one thread block cluster of a power of two CTAs,
 # at most MAX_SPLITS (over 8 is a non-portable size, which Hopper takes),
@@ -54,6 +60,8 @@ class MvmPlan(typing.NamedTuple):
     splits: int          # parts of the K range: the cluster's CTAs
     stages: int          # cp.async ring depth
     smem: int            # dynamic shared bytes (the ring)
+    grid_rows: int       # CTAs along the rows (grid z), each walking
+    #                      row tiles grid_rows apart
 
 
 @functools.lru_cache(maxsize=1024)
@@ -67,7 +75,19 @@ def mvm_plan(m: int, k: int, n: int, s: int,
     of a tile form one cluster, whose CTAs the card places in one GPC;
     a power of two of them packs a GPC's CTA slots (two per SM, 16 or
     18 SMs) without a remainder, where 3 of them left the last clusters
-    of 2048 x 11008 a second wave on an H100."""
+    of 2048 x 11008 a second wave on an H100.
+
+    Row tiles go on grid z, which CUDA caps at MAX_GRID_Z = 65535 CTAs:
+    16 x 65535 = 1 048 560 rows, one tile short of a ResNet-20 stage-0
+    conv over 1024 images (1024 x 32 x 32 rows).  So the kernel walks its
+    row tiles in a grid-stride loop over blockIdx.z, and the plan puts
+    min(row_tiles, MAX_GRID_Z) CTAs there: one launch takes any M that
+    fits memory, where splitting M into several launches would make the
+    launch count of a forward depend on the batch.  Every plan with at
+    most MAX_GRID_Z row tiles (every decode and prefill shape) has
+    grid_rows == row_tiles, one tile a CTA, as before; the walk is a
+    kernel instantiation of its own, which only plans with fewer CTAs
+    than tiles launch."""
     mt = next((t for t in ROW_TILES if t >= m), ROW_TILES[-1])
     row_tiles = -(-m // mt)
     col_tiles = -(-n // BN)
@@ -83,13 +103,14 @@ def mvm_plan(m: int, k: int, n: int, s: int,
         raise KernelTileError(f"{smem + static} shared bytes for {s} planes "
                               f"at {mt} rows, over the card's "
                               f"{props.max_smem}")
-    return MvmPlan(mt, row_tiles, col_tiles, ktiles, splits, stages, smem)
+    return MvmPlan(mt, row_tiles, col_tiles, ktiles, splits, stages, smem,
+                   min(row_tiles, MAX_GRID_Z))
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("bitslice_mvm").bitslice_mvm_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -143,7 +164,7 @@ def _launch(x2: torch.Tensor, planes: torch.Tensor,
         x2.data_ptr(), planes.data_ptr(),
         row_scale.data_ptr() if scaled else None, out.data_ptr(),
         m, k, n, x2.shape[1], s, bits_per_slice, plan.mt, plan.stages,
-        plan.splits, plan.smem, int(scaled),
+        plan.splits, plan.grid_rows, plan.smem, int(scaled),
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(status, "bitslice_mvm")
     registry.count_launch(NAME_SCALED if scaled else NAME_INT)
@@ -155,6 +176,36 @@ def _rows(x_q: torch.Tensor, k: int) -> torch.Tensor:
     if x2.device.type == "cuda":
         x2 = x2.to(torch.int8).contiguous()
     return x2
+
+
+def bitslice_mvm(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                 weight_bits: int = 8, bits_per_slice: int = 2,
+                 backend: KernelBackend | str | None = None,
+                 ) -> torch.Tensor:
+    """``x_q @ w_q`` through the bit-sliced kernel, slicing the planes
+    per call (the raw-weight forwards).
+
+    x_q: [..., K] int (int8 range); w_q: [K, N] int, signed in
+    ``weight_bits``.  Returns [..., N] int32.  The kernel reads N in
+    16-byte vectors, so the planes' N is padded with zero columns up to
+    a multiple of VEC and the output cut back, as the JAX package pads
+    the planes to its block (``ops._run``); the plain version takes the
+    same planes unpadded."""
+    k, n = w_q.shape
+    if x_q.shape[-1] != k:
+        raise KernelTileError(f"x has K={x_q.shape[-1]}, the weight K={k}")
+    b = registry.resolve_backend(x_q, backend, kernel=KERNEL)
+    planes = bitslice.slice_planes_signed(w_q, weight_bits,
+                                          bits_per_slice).to(torch.int8)
+    x2 = _rows(x_q, k)
+    if b == KernelBackend.TORCH:
+        out = bitslice_mvm_ref(x2, planes, bits_per_slice=bits_per_slice)
+    else:
+        pad = -n % VEC
+        if pad:
+            planes = torch.nn.functional.pad(planes, (0, pad))
+        out = _launch(x2, planes.contiguous(), None, bits_per_slice)[:, :n]
+    return out.reshape(x_q.shape[:-1] + (n,))
 
 
 def bitslice_mvm_planes(x_q: torch.Tensor, planes: torch.Tensor, *,

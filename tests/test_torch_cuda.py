@@ -153,6 +153,59 @@ def test_bitslice_mvm_launch_plans_bit_exact(dev, m, k, n):
         * registry.device_props(dev.index).sms)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bps", [
+    (5, 27, 10, 2), (300, 144, 10, 2), (1024, 64, 10, 2), (33, 576, 64, 2),
+    (17, 27, 10, 8), ((1 << 20) + 16, 144, 16, 2),
+    ((1 << 20) + 16, 27, 10, 8)])
+def test_unpacked_bitslice_mvm_bit_exact(dev, m, k, n, bps):
+    """The unpacked entry (planes sliced per call, N padded to 16 and
+    cut back) bit for bit against its plain version, in one launch
+    each: at N=10 (ResNet-20's classifier), and past 16 x 65535 rows,
+    where the row tiles outnumber CUDA's gridDim.z limit."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int32)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    plan = mvm.mvm_plan(m, k, -(-n // mvm.VEC) * mvm.VEC, 4 if bps == 2
+                        else 1, registry.device_props(dev.index))
+    assert plan.grid_rows == min(plan.row_tiles, mvm.MAX_GRID_Z)
+    registry.reset_launches()
+    got = mvm.bitslice_mvm(x, wq, weight_bits=8, bits_per_slice=bps)
+    again = mvm.bitslice_mvm(x, wq, weight_bits=8, bits_per_slice=bps)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"bitslice_mvm": 2}
+    want = mvm.bitslice_mvm(x, wq, weight_bits=8, bits_per_slice=bps,
+                            backend="torch")
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pum", "int8"])
+def test_resnet20_kernel_forward_equals_torch_backend(dev, mode):
+    """ResNet-20 (width 8, 4 images) through K2 on the card: 22
+    launches a forward, logits bit-equal to the torch backend's (every
+    MVM is integer arithmetic on equal inputs, the float ops the same
+    ops on the same device)."""
+    from repro_torch.apps import resnet_app
+    from repro_torch.config import PUMConfig
+    from repro_torch.models import resnet
+    gen = torch.Generator(dev).manual_seed(0)
+    params = resnet.resnet20_init(gen, width=8, device=dev)
+    x, _ = resnet_app.synthetic_images(gen, 4, device=dev)
+    cfg = PUMConfig(mode=mode)
+    registry.reset_launches()
+    got = resnet.resnet20_apply(params, x, cfg)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"bitslice_mvm": 22}
+    with registry.use_backend("torch"):
+        want = resnet.resnet20_apply(params, x, cfg)
+    assert got.shape == (4, 10) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
 def _attn_args(dev, *, s, q_dtype, hd, t, seed, bs=16, b=4, kvh=2, grp=8):
     """Rows 0 and 1 active, row 2 inactive (an all-trash table), row 3
     writing past its table width; a window of T keys, blocks shuffled."""

@@ -85,6 +85,29 @@ def test_bitslice_mvm_plain_equals_jax_interpret_kernel():
     np.testing.assert_array_equal(got_i.numpy(), want_i)
 
 
+@pytest.mark.parametrize("k", [16, 27, 144, 576])
+@pytest.mark.parametrize("n", [10, 16, 64])
+@pytest.mark.parametrize("bps", [2, 8])
+def test_unpacked_bitslice_mvm_plain_equals_jax(k, n, bps):
+    """The unpacked entry (planes sliced per call from a signed weight)
+    at the ResNet-20 layer shapes, bit for bit against the JAX
+    package's ``bitslice_mvm(..., backend="xla")``."""
+    rng = np.random.default_rng(k * n + bps)
+    x = rng.integers(-127, 128, size=(2, 7, k)).astype(np.int32)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int32)
+    want = np.asarray(jmvm.bitslice_mvm(jnp.asarray(x), jnp.asarray(wq),
+                                        weight_bits=8, bits_per_slice=bps,
+                                        backend="xla"))
+    got = tmvm.bitslice_mvm(torch.from_numpy(x), torch.from_numpy(wq),
+                            weight_bits=8, bits_per_slice=bps)
+    assert got.dtype == torch.int32 and got.shape == (2, 7, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), x @ wq)
+    with pytest.raises(registry.KernelTileError):
+        tmvm.bitslice_mvm(torch.from_numpy(x)[..., 1:],
+                          torch.from_numpy(wq))
+
+
 # ---------------------------------------------------------------------------
 # paged attention: plain version against JAX's oracle and composition
 # ---------------------------------------------------------------------------
@@ -274,6 +297,68 @@ def test_mvm_plan_at_the_served_shapes():
     # a card with too little shared memory for the ring is refused
     with pytest.raises(registry.KernelTileError):
         tmvm.mvm_plan(4, 2048, 256, 4, H100._replace(max_smem=48 * 1024))
+
+
+# each launch plan at the serving path's decode and prefill shapes:
+# (mt, row_tiles, col_tiles, ktiles, splits, stages, smem) by (M, K, N, S)
+DECODE_PLANS = {
+    (4, 2048, 2048, 1): (4, 1, 16, 32, 8, 8, 67584),
+    (4, 2048, 2048, 4): (4, 1, 16, 32, 8, 3, 99072),
+    (4, 2048, 256, 4): (4, 1, 2, 32, 8, 3, 99072),
+    (4, 2048, 11008, 1): (4, 1, 86, 32, 2, 8, 67584),
+    (4, 2048, 11008, 4): (4, 1, 86, 32, 2, 3, 99072),
+    (4, 11008, 2048, 4): (4, 1, 16, 172, 16, 3, 99072),
+    (1, 11008, 2048, 1): (1, 1, 16, 172, 16, 8, 66048),
+    (16, 2048, 2048, 4): (16, 1, 16, 32, 8, 3, 101376),
+    (16, 2048, 11008, 1): (16, 1, 86, 32, 2, 8, 73728),
+    (16, 11008, 2048, 4): (16, 1, 16, 172, 16, 3, 101376),
+    (32, 2048, 11008, 4): (16, 2, 86, 32, 1, 3, 101376),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(DECODE_PLANS))
+def test_mvm_plan_at_decode_shapes_unchanged(shape):
+    """The row-tile walk changed no plan of the serving path: one CTA a
+    row tile, as many on grid z as there are tiles."""
+    plan = tmvm.mvm_plan(*shape, H100)
+    assert tuple(plan[:7]) == DECODE_PLANS[shape]
+    assert plan.grid_rows == plan.row_tiles
+
+
+# ResNet-20's im2col MVMs over 1024 images: (M, K, N)
+CNN_SHAPES = [(1 << 20, 27, 16), (1 << 20, 144, 16), (1 << 18, 144, 32),
+              (1 << 18, 288, 32), (1 << 18, 16, 32), (1 << 16, 288, 64),
+              (1 << 16, 576, 64), (1 << 16, 32, 64), (1024, 64, 16)]
+
+
+@pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])
+@pytest.mark.parametrize("m", [1 << 20, 1 << 22, 16 * 65535 + 1,
+                               16 * 65535, 3 << 20])
+@pytest.mark.parametrize("k,n", [(27, 16), (144, 16), (576, 64)])
+@pytest.mark.parametrize("s", [1, 4])
+def test_mvm_plan_past_the_grid_z_limit(m, k, n, s, props):
+    """Over 65535 row tiles the launch stays within CUDA's gridDim.z
+    limit, and the kernel's walk (CTA z takes tiles z, z + grid_rows,
+    ...) covers every tile once, in one launch."""
+    plan = tmvm.mvm_plan(m, k, n, s, props)
+    assert plan.mt == 16
+    assert plan.row_tiles == -(-m // 16)
+    assert 1 <= plan.grid_rows <= tmvm.MAX_GRID_Z == 65535
+    assert plan.grid_rows == min(plan.row_tiles, 65535)
+    walked = [t for z in range(plan.grid_rows)
+              for t in range(z, plan.row_tiles, plan.grid_rows)]
+    assert len(walked) == plan.row_tiles
+    assert set(walked) == set(range(plan.row_tiles))
+    # the tiles alone fill the card: no split over K
+    assert plan.splits == 1
+
+
+@pytest.mark.parametrize("m,k,n", CNN_SHAPES)
+def test_mvm_plan_at_the_cnn_shapes(m, k, n):
+    plan = tmvm.mvm_plan(m, k, n, 4, H100)
+    assert plan.grid_rows == min(plan.row_tiles, 65535)
+    assert plan.grid_rows <= 65535 and plan.col_tiles == 1
+    assert plan.smem + 4 * plan.mt * tmvm.BN <= H100.max_smem
 
 
 @pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])

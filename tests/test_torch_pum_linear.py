@@ -6,10 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.config import ADCConfig as JADC, NoiseConfig as JNoise
 from repro.config import PUMConfig as JPUM
 from repro.core import bitslice as jb
 from repro.core import prepack as jpre
 from repro.core import pum_linear as jpl
+from repro_torch.config import ADCConfig, NoiseConfig
 from repro_torch.config import PUMConfig as TPUM
 from repro_torch.core import bitslice as tb
 from repro_torch.core import prepack as tpre
@@ -76,10 +78,138 @@ def test_bf16_mode_matches():
 
 
 def test_unported_paths_raise():
+    """The raw-weight int8/pum forward has no gradient yet (the QAT
+    straight-through estimator is not ported): it raises wherever
+    autograd would need one, and runs where it would not."""
     (_, _, _), (tx, tw, _) = _case(4, "float32")
-    with pytest.raises(NotImplementedError):
-        tpl.pum_linear(tx, tw, TPUM(mode="pum"))          # QAT path
-    noisy = TPUM(mode="pum")
-    noisy = type(noisy)(mode="pum", noise=type(noisy.noise)(enable=True))
-    with pytest.raises(NotImplementedError):
-        tpl.pum_linear(tx, tpre.pack_weight(tw, noisy), noisy)
+    for mode in ("pum", "int8"):
+        with pytest.raises(NotImplementedError, match="gradient"):
+            tpl.pum_linear(tx, tw.clone().requires_grad_(), TPUM(mode=mode))
+        with pytest.raises(NotImplementedError, match="gradient"):
+            tpl.pum_linear(tx.clone().requires_grad_(), tw, TPUM(mode=mode))
+        with torch.no_grad():
+            y = tpl.pum_linear(tx, tw.clone().requires_grad_(),
+                               TPUM(mode=mode))
+        assert y.shape == (2, 6, 40) and not y.requires_grad
+        assert tpl.pum_linear(tx, tw, TPUM(mode=mode)).shape == (2, 6, 40)
+    # the float mode keeps its gradient
+    w = tw.clone().requires_grad_()
+    tpl.pum_linear(tx, w, TPUM(mode="bf16")).sum().backward()
+    assert w.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the raw-weight forwards (quantised per call): the ResNet path
+# ---------------------------------------------------------------------------
+
+RAW_K = [27, 144, 576]
+RAW_N = [10, 16, 64]
+
+
+def _raw_case(seed, k, n):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 5, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * np.sqrt(2.0 / k)).astype(np.float32)
+    return (jnp.asarray(x), jnp.asarray(w)), (torch.from_numpy(x),
+                                              torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("k", RAW_K)
+@pytest.mark.parametrize("n", RAW_N)
+def test_raw_pum_bit_exact(k, n):
+    """Per-tensor weight quantisation, the bit-plane int32 accumulator
+    and the f32 output, all bit for bit (tolerance: none)."""
+    (jx, jw), (tx, tw) = _raw_case(k + n, k, n)
+    jwq, jws = jb.quantize_symmetric(jw, 8)
+    twq, tws = tb.quantize_symmetric(tw, 8)
+    np.testing.assert_array_equal(twq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(tws.numpy(), np.asarray(jws))
+    jq, _ = jpl._quantize_act(jx, 8)
+    tq, _ = tpl._quantize_act(tx, 8)
+    want = np.asarray(jb.bitsliced_matmul_exact(jq, jwq, 8, 2))
+    np.testing.assert_array_equal(
+        tb.bitsliced_matmul_exact(tq, twq, 8, 2).numpy(), want)
+    np.testing.assert_array_equal(
+        tmvm.bitslice_mvm(tq, twq, weight_bits=8, bits_per_slice=2).numpy(),
+        want)
+    jy = jpl.pum_linear(jx, jw, JPUM(mode="pum"))
+    ty = tpl.pum_linear(tx, tw, TPUM(mode="pum"))
+    assert ty.dtype == torch.float32 and ty.shape == (2, 5, n)
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+@pytest.mark.parametrize("k", RAW_K)
+@pytest.mark.parametrize("n", RAW_N)
+def test_raw_int8_bit_exact(k, n):
+    """Per-column weight quantisation, the int32 accumulator and the f32
+    output, bit for bit (tolerance: none)."""
+    (jx, jw), (tx, tw) = _raw_case(2 * k + n, k, n)
+    jwq, jws = jb.quantize_symmetric(jw, 8, axis=0)
+    twq, tws = tb.quantize_symmetric(tw, 8, axis=0)
+    np.testing.assert_array_equal(twq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(tws.numpy(), np.asarray(jws))
+    jq, _ = jpl._quantize_act(jx, 8)
+    tq, _ = tpl._quantize_act(tx, 8)
+    want = np.asarray(jb.int_matmul(jq, jwq))
+    np.testing.assert_array_equal(tb.int_matmul(tq, twq).numpy(), want)
+    np.testing.assert_array_equal(
+        tmvm.bitslice_mvm(tq, twq, weight_bits=8, bits_per_slice=8).numpy(),
+        want)
+    jy = jpl.pum_linear(jx, jw, JPUM(mode="int8"))
+    ty = tpl.pum_linear(tx, tw, TPUM(mode="int8"))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+
+
+def _noisy(prog_sigma=0.05, read_sigma=0.0):
+    return TPUM(mode="pum", adc=ADCConfig("sar", bits=10),
+                noise=NoiseConfig(enable=True, prog_sigma=prog_sigma,
+                                  read_sigma=read_sigma))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
+@pytest.mark.parametrize("noise", [dict(prog_sigma=0.05),
+                                   dict(prog_sigma=0.0, read_sigma=0.5)],
+                         ids=["prog", "read"])
+def test_noise_branch_follows_the_generator(packed, noise):
+    """The ACE simulation draws its noise from the generator: the same
+    seed gives the same bits, another seed other bits, and noise on
+    differs from noise off (the exact MVM)."""
+    (_, _), (tx, tw) = _raw_case(7, 144, 16)
+    cfg = _noisy(**noise)
+    w = tpre.pack_weight(tw, TPUM(mode="pum")) if packed else tw
+
+    def run(seed):
+        return tpl.pum_linear(tx, w, cfg,
+                              generator=torch.Generator().manual_seed(seed))
+
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    exact = tpl.pum_linear(tx, w, TPUM(mode="pum"))
+    assert not torch.equal(a, exact)
+    if noise["prog_sigma"]:
+        # 5 % conductance error: the result stays near the exact MVM
+        assert (a - exact).abs().max() < 0.5 * exact.abs().max()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["raw", "packed"])
+def test_noise_branch_without_noise_is_the_exact_mvm(packed):
+    """``noise.enable`` with zero sigmas runs the ACE simulation, whose
+    10-bit ADC digitises a 64-row array's count exactly: the same f32
+    output as the exact path (and as JAX's, bit for bit)."""
+    (jx, jw), (tx, tw) = _raw_case(8, 144, 10)
+    tcfg = TPUM(mode="pum", adc=ADCConfig("sar", bits=10),
+                noise=NoiseConfig(enable=True))
+    jcfg = JPUM(mode="pum", adc=JADC("sar", bits=10),
+                noise=JNoise(enable=True))
+    if packed:
+        tw_, jw_ = (tpre.pack_weight(tw, TPUM(mode="pum")),
+                    jpre.pack_weight(jw, JPUM(mode="pum")))
+    else:
+        tw_, jw_ = tw, jw
+    got = tpl.pum_linear(tx, tw_, tcfg)
+    np.testing.assert_array_equal(got.numpy(),
+                                  tpl.pum_linear(tx, tw_,
+                                                 TPUM(mode="pum")).numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jpl.pum_linear(jx, jw_, jcfg)))
