@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
    greedy tokens each.  The scheduler runs every decode step and prefill
    chunk as a CUDA graph replay, building one graph for decode and one
-   per chunk length.  Checks every completion, the launch counts per
+   per chunk length; the decode graph holds the sampler, whose greedy
+   rows take the argmax (phase 8).  Checks every completion, the launch counts per
    decode step and prefill chunk (replays counted), and that each step
    was built once.  Then: one chunk and one decode step from a fresh
    pool with graphs on and off, logits bit-equal; the same trace again
@@ -62,8 +63,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    without noise at least 0.75, at sigma 0.3 no higher, noise drawn
    (on differs from off) from the generator (the same seed gives the
    same bits).
-8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-7) must have launched there;
+8. sampled — the sampler (``serve/prng.py``, ``sample_token``) on the
+   card: threefry's known answers; random bits and uniforms over a
+   decode step's [4, 152064] logits (one key, and a key a row)
+   bit-equal to the CPU's; Gumbel values within 2 ulps of the CPU's;
+   categorical draws over 64 rows equal to the CPU's but at near-ties,
+   counted; 2^20 rows, a key each, drawing from one 16-way categorical
+   at t = 0.7, every frequency within 5 sigma of ``softmax(l / t)``;
+   the sampler's device ms at a decode step's shapes.  Then in ``pum``
+   and ``int8``: the CLI at ``--temperature 0.7`` (the main path), and
+   on its scheduler phase 4's six requests at temperatures [0, 0.7, 1,
+   0, 0.7, 1], a seed each, gated: each completion equal to the request
+   served alone through the same kernels, and on the ``torch`` backend
+   (where the scheduler and the contiguous solo loop run the same
+   arithmetic) to its solo ``generate_loop``; graphs and eager equal in
+   tokens and launches; the temperature-0 requests equal to phase 4's
+   tokens; one decode program and nothing new built; the same seeds the
+   same tokens and other seeds other tokens; at t = 1 some token off the
+   greedy one; 252 MVM + 36 attention launches a step or chunk; in
+   ``pum``, where the cuda backend's completions first differ from the
+   contiguous solo loop on the cuda backend (printed, not gated); decode
+   ms/step
+   (graphs and eager), tokens/s, a decode replay's device ms and the
+   sampler's share of it; greedy decode ms/step of phases 4-5b beside
+   those recorded before the decode graph held the sampler (PERF.md).
+9. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-8) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
@@ -744,7 +769,7 @@ def profiled(run) -> tuple[float, float, str] | None:
     return wall, sum(by_name.values()) / 1e6, top_kernels(by_name)
 
 
-def like(sched, cuda_graphs: bool):
+def like(sched, cuda_graphs: bool, kernel_backend=None):
     """A fresh scheduler of ``sched``'s geometry on its params."""
     from repro_torch.serve import ContinuousBatchingScheduler
     return ContinuousBatchingScheduler(
@@ -752,7 +777,7 @@ def like(sched, cuda_graphs: bool):
         max_len=sched.max_len, kv_block_size=sched.block_size,
         num_kv_blocks=sched.num_kv_blocks,
         chunked_prefill=sched.chunked_prefill, device=sched.device,
-        cuda_graphs=cuda_graphs)
+        cuda_graphs=cuda_graphs, kernel_backend=kernel_backend)
 
 
 def graph_vs_eager(sched) -> None:
@@ -786,17 +811,23 @@ def graph_vs_eager(sched) -> None:
         raise AssertionError("graph and eager steps differ")
 
 
-def step_device_ms(sched) -> float:
+def step_device_ms(sched, temps=None) -> float:
     """Device time of one replay of the decode graph, between CUDA
     events, every slot active at a depth of 60 tokens (the trace's
-    middle) through its own blocks (the pool is idle after the run)."""
+    middle) through its own blocks (the pool is idle after the run), at
+    temperatures ``temps`` (default: all greedy; the graph runs the
+    sampler either way)."""
     import numpy as np
     prog = sched.program("decode")
     b, w = sched.num_slots, sched.table_width
     table = np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w)
     ones = np.ones(b, np.int32)
-    prog.stage(np.zeros((b, 1), np.int32), 60 * ones, ones, -ones, ones,
-               (1 << 20) * ones, table)
+    temps = np.zeros(b, np.float32) if temps is None \
+        else np.asarray(temps, np.float32)
+    keys = np.stack([np.zeros(b, np.int32), np.arange(b, dtype=np.int32)],
+                    axis=1)
+    prog.stage(np.zeros((b, 1), np.int32), 60 * ones, keys, ones,
+               temps.view(np.int32), -ones, ones, (1 << 20) * ones, table)
     return event_ms(prog.launch, reps=20)
 
 
@@ -842,12 +873,14 @@ def device_busy(sched, label: str, smi: str) -> None:
         f"({100 * busy / wall:.1f} % busy) on {smi}; top: {top}")
 
 
-def serve_phases(smi: str) -> dict[str, int]:
+def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
     """Phases 4-5b; returns each kernel's launches on the main path
-    (each mode's first run)."""
+    (each mode's first run), and by mode the greedy trace's tokens and
+    its decode ms/step, graphs and eager (phase 8 compares with them)."""
     import gc
     import torch
     launches: dict[str, int] = {}
+    greedy: dict[str, dict] = {}
     for mode in SERVE_MODES:
         res, counts = serve_run(mode, smi)
         for k, v in counts.items():
@@ -877,6 +910,8 @@ def serve_phases(smi: str) -> dict[str, int]:
             f"tokens_per_s {steady['tokens_per_s']:.2f} / "
             f"{eager['tokens_per_s']:.2f}, peak_mem_GB "
             f"{steady['peak_gb']:.2f} / {eager['peak_gb']:.2f} on {smi}")
+        greedy[mode] = dict(tokens=first, graph_ms=steady["decode_ms"],
+                            eager_ms=eager["decode_ms"])
         backend_parity(sched)
         step_ms = step_device_ms(sched)
         busy = 100 * step_ms / steady["decode_ms"]
@@ -887,10 +922,11 @@ def serve_phases(smi: str) -> dict[str, int]:
         head_share(sched, step_ms, smi)
         device_busy(sched, f"{mode} graphs", smi)
         device_busy(eager_sched, f"{mode} eager", smi)
+        greedy[mode]["replay_ms"] = step_ms
         del res, sched, eager_sched
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, greedy
 
 
 # ---------------------------------------------------------------------------
@@ -1230,6 +1266,252 @@ def cnn_phase(dev, gpu_name: str, smi: str) -> tuple[dict[str, int],
     return {"bitslice_mvm": launches["bitslice_mvm"]}, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: sampled serving (temperature > 0 from threefry keys)
+# ---------------------------------------------------------------------------
+
+# phase 4's six requests (the same prompts: the trace's temperatures and
+# seeds are drawn after its prompts) at these temperatures, a seed each
+SAMPLED_TEMPS = (0.0, 0.7, 1.0, 0.0, 0.7, 1.0)
+SAMPLED_SEEDS = (1001, 1002, 1003, 1004, 1005, 1006)
+# Threefry-2x32 known answers: (key, count) -> output, 20 rounds
+THREEFRY_KAT = [((0x13198a2e, 0x03707344, 0x243f6a88, 0x85a308d3),
+                 (0xc4923a9c, 0x483df7a0)),
+                ((0, 0, 0, 0), (0x6b200159, 0x99ba4efe))]
+# CUDA's logf and the CPU's log may differ by an ulp: the card's Gumbel
+# values lie within GUMBEL_ULPS ulps of max(|g|, 1) of the CPU's, and a
+# draw may differ from the CPU's only where the CPU's top-2 score margin
+# is within NEAR_TIE, far above that difference (2 ulps of a value
+# below 17 are under 4e-6)
+GUMBEL_ULPS = 2
+NEAR_TIE = 1e-5
+# a decode step's logits: 4 slots x Qwen2.5-3B's padded vocabulary
+SAMPLER_ROWS, SAMPLER_VOCAB = 4, 152064
+CATEGORICAL_ROWS = 64
+# the distribution check: 2^20 rows, a key each, one 16-way categorical
+# at t = 0.7; every class's frequency within 5 sigma of softmax(l / t)
+DIST_ROWS, DIST_T, DIST_SIGMAS = 1 << 20, 0.7, 5.0
+DIST_LOGITS = [0.0, 1.0, -1.0, 2.0, 0.5, -0.5, 1.5, -2.0, 0.25, -0.25,
+               0.75, -0.75, 1.25, -1.25, 0.1, -3.0]
+# greedy decode ms/step, graphs, of the same trace recorded before the
+# sampler was part of the decode graph (PERF.md §6: an H100 80GB HBM3 at
+# 700 W)
+PRE_SAMPLER_GREEDY_MS = {"pum": 17.046, "int8": 17.776, "bf16": 14.369}
+
+
+def _u32(t) -> list[int]:
+    return t.cpu().numpy().view("uint32").tolist()
+
+
+def check_sampler(dev, smi: str) -> float:
+    """The sampler (``serve/prng.py`` and ``sample_token``) on the card
+    against its own CPU result and against its definition.  Returns its
+    device ms at a decode step's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import prng
+    from repro_torch.serve.engine import sample_token
+    for words, want in THREEFRY_KAT:
+        got = prng.threefry2x32(*(
+            torch.from_numpy(np.array([w], np.uint32).view(np.int32)).to(dev)
+            for w in words))
+        if [_u32(t)[0] for t in got] != list(want):
+            raise AssertionError(f"threefry2x32{words}: "
+                                 f"{[hex(_u32(t)[0]) for t in got]}")
+    b, v = SAMPLER_ROWS, SAMPLER_VOCAB
+    one = prng.prng_key(7)
+    rows = torch.stack([prng.prng_key(s) for s in range(b)])
+    worst = 0.0
+    for key, shape in ((one, (b, v)), (rows, (v,))):
+        for fn in (prng.random_bits, prng.uniform):
+            if not torch.equal(fn(key.to(dev), shape).cpu(), fn(key, shape)):
+                raise AssertionError(f"{fn.__name__} on the card differs "
+                                     f"from the CPU's")
+        got = prng.gumbel(key.to(dev), shape).cpu().numpy()
+        want = prng.gumbel(key, shape).numpy()
+        ulps = np.abs(got - want) / np.spacing(
+            np.maximum(np.abs(want), 1).astype(np.float32))
+        worst = max(worst, float(ulps.max()))
+    if worst > GUMBEL_ULPS:
+        raise AssertionError(f"gumbel {worst} ulps from the CPU's")
+    g = torch.Generator().manual_seed(8)
+    logits = 3 * torch.randn((CATEGORICAL_ROWS, v), generator=g)
+    near_ties = draws = 0
+    for key in (prng.prng_key(9), torch.stack(
+            [prng.prng_key(s) for s in range(CATEGORICAL_ROWS)])):
+        got = prng.categorical(key.to(dev), logits.to(dev)).cpu()
+        want = prng.categorical(key, logits)
+        shape = logits.shape[key.ndim - 1:]
+        top2 = torch.topk(prng.gumbel(key, shape) + logits, 2).values
+        near = (top2[:, 0] - top2[:, 1]) <= NEAR_TIE
+        if not torch.equal(got[~near], want[~near]):
+            raise AssertionError("categorical draws on the card differ from "
+                                 "the CPU's away from a near-tie")
+        near_ties += int(near.sum())
+        draws += len(got)
+    log(f"sampler: threefry2x32 known answers equal on the card; random "
+        f"bits and uniforms over [{b}, {v}] (one key) and {b} x [{v}] (a "
+        f"key a row) bit-equal to the CPU's; gumbel within {worst:.0f} "
+        f"ulps of max(|g|, 1) of the CPU's (bound {GUMBEL_ULPS}); "
+        f"categorical draws equal on {draws - near_ties} of {draws}, "
+        f"{near_ties} near-ties (CPU top-2 margin <= {NEAR_TIE}) not "
+        f"compared")
+    # the distribution: 2^20 rows, a key each, one categorical at t = 0.7
+    n = DIST_ROWS
+    keys = prng.fold_in(prng.prng_key(2024, dev).expand(n, 2),
+                        torch.arange(n, dtype=torch.int32, device=dev))
+    dist = torch.tensor(DIST_LOGITS, device=dev).expand(n, 1, -1)
+    tok = sample_token(dist, keys, torch.full((n,), DIST_T, device=dev))
+    freq = torch.bincount(tok[:, 0].long(), minlength=len(DIST_LOGITS))
+    freq = freq.cpu().numpy() / n
+    scaled = np.array(DIST_LOGITS, np.float64) / np.float32(DIST_T)
+    p = np.exp(scaled - scaled.max())
+    p /= p.sum()
+    z = (freq - p) / np.sqrt(p * (1 - p) / n)
+    log(f"sampler distribution: {n} rows at t = {DIST_T}, 16 classes: "
+        f"max |freq - softmax(l / t)| = {np.abs(freq - p).max():.3g}, "
+        f"max |z| = {np.abs(z).max():.2f} (bound {DIST_SIGMAS:.0f} sigma)")
+    if np.abs(z).max() > DIST_SIGMAS:
+        raise AssertionError(f"sampled frequencies {freq} against {p}")
+    # the sampler alone at a decode step's shapes: fold the keys, draw
+    g = torch.Generator(device=dev).manual_seed(9)
+    step_logits = torch.randn((b, 1, v), generator=g, device=dev)
+    step_keys = rows.to(dev)
+    gen = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+    temps = torch.tensor([0.0, 0.7, 1.0, 0.7], device=dev)
+    ms = device_ms(lambda: sample_token(
+        step_logits, prng.fold_in(step_keys, gen - 1), temps))
+    log(f"sampler at a decode step's shapes ([{b}, 1, {v}] f32 logits, "
+        f"{b} keys folded): {ms:.4f} ms of device time on {smi}")
+    return ms
+
+
+def sampled_run(mode: str, greedy: dict, sampler_ms: float,
+                smi: str) -> dict[str, int]:
+    """Phase 8 in one mode: the CLI at ``--temperature 0.7`` (the main
+    path; its launches are returned), then, on its scheduler, phase 4's
+    requests at ``SAMPLED_TEMPS``, each seeded, with every gate."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import oracle_completion
+    registry.reset_launches()
+    res = serve.main(SERVE_ARGS + ["--pum-mode", mode, "--temperature",
+                                   "0.7"])
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched = res["scheduler"]
+    cfg = sched.cfg
+    comps = res["completions"]
+    vp = sched.params["embed"].shape[0]
+    if len(comps) != 6 or any(
+            len(c.tokens) != 16 or not all(0 <= t < vp for t in c.tokens)
+            for c in comps.values()):
+        raise AssertionError(f"sampled {mode}: CLI completions "
+                             f"{[(c.rid, c.tokens) for c in comps.values()]}")
+    launch_gate(mode, cfg.num_layers, sched.decode_steps,
+                sched.prefill_chunks, launches)
+    progs = sched.step_programs()
+    if progs["decode"] != 1 or any(n != 1 for n in progs["chunk"].values()):
+        raise AssertionError(f"sampled {mode}: programs {progs}")
+    reqs = [dataclasses.replace(r, temperature=t, seed=s) for r, t, s in
+            zip(res["requests"], SAMPLED_TEMPS, SAMPLED_SEEDS)]
+    first = timed_run(sched, reqs)
+    again = timed_run(sched, reqs)
+    reseeded = timed_run(sched, [dataclasses.replace(r, seed=r.seed + 1)
+                                 for r in reqs])
+    eager = timed_run(like(sched, cuda_graphs=False), reqs)
+    tokens = first["tokens"]
+    t0 = time.perf_counter()
+    # each request alone through the same kernels: co-tenants never move
+    # a row's numerics, so each comes back as in the mixed batch
+    alone = {r.rid: tokens_of(sched.run([r]))[r.rid] for r in reqs}
+    # the port's solo oracle, generate_loop, keeps a contiguous cache and
+    # attends through the plain composition, never K3, whose f32 sums
+    # run in another order (backend parity): it equals the scheduler bit
+    # for bit where both run the same arithmetic, the torch backend
+    plain = like(sched, cuda_graphs=True, kernel_backend="torch")
+    plain_tokens = tokens_of(plain.run(reqs))
+    solo = {r.rid: oracle_completion(plain.engine, r) for r in reqs}
+    solo_s = time.perf_counter() - t0
+    cold = [r.rid for r in reqs if r.temperature == 0]
+    hot = [r.rid for r in reqs if r.temperature > 0]
+    hottest = [r.rid for r in reqs if r.temperature == 1.0]
+    gates = {
+        "each completion equals the request served alone": tokens == alone,
+        "the torch backend's completions equal their solo generate_loop":
+            plain_tokens == solo,
+        "graphs and eager give the same tokens and launches":
+            eager["tokens"] == tokens
+            and eager["launches"] == first["launches"],
+        "the temperature-0 requests give phase 4's tokens":
+            all(tokens[r] == greedy["tokens"][r] for r in cold),
+        "one decode program, nothing new built":
+            sched.step_programs() == progs,
+        "the same seeds give the same tokens": again["tokens"] == tokens,
+        "other seeds give other tokens (greedy rows unchanged)":
+            any(reseeded["tokens"][r] != tokens[r] for r in hot)
+            and all(reseeded["tokens"][r] == tokens[r] for r in cold),
+        "at t = 1.0 a token differs from the greedy one":
+            any(tokens[r] != greedy["tokens"][r] for r in hottest),
+    }
+    for run in (first, again, reseeded, eager):
+        launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+                    run["launches"])
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"sampled {mode}: 6 requests at temperatures {list(SAMPLED_TEMPS)}, "
+        f"seeds {list(SAMPLED_SEEDS)}; launches {first['launches']} over "
+        f"{first['steps']} decode steps + {first['chunks']} chunks (252 MVM "
+        f"+ 36 attention a step or chunk); programs {sched.step_programs()}; "
+        f"solo runs {solo_s:.1f} s; gates failed: {failed}")
+    if failed:
+        raise AssertionError(f"sampled {mode}: {failed}")
+    if mode == "pum":
+        # not a gate: the cuda backend against the contiguous oracle
+        diff = {}
+        for r in reqs:
+            want = oracle_completion(sched.engine, r)
+            diff[r.rid] = next((i for i, (a, b) in enumerate(
+                zip(tokens[r.rid], want)) if a != b), None)
+        log(f"sampled {mode}: the cuda backend's completions against "
+            f"generate_loop on the cuda backend (contiguous cache, plain "
+            f"attention): first differing token by request {diff} (None: "
+            f"equal)")
+    replay_ms = step_device_ms(sched, temps=[0.0, 0.7, 1.0, 0.7])
+    log(f"sampled {mode}: decode_ms_per_step graphs / eager "
+        f"{again['decode_ms']:.3f} / {eager['decode_ms']:.3f}, tokens_per_s "
+        f"{again['tokens_per_s']:.2f} / {eager['tokens_per_s']:.2f}; a "
+        f"decode replay {replay_ms:.4f} ms of device time (phases 4-5, every "
+        f"row greedy: {greedy['replay_ms']:.4f}); the sampler alone "
+        f"{sampler_ms:.4f} ms = {100 * sampler_ms / replay_ms:.1f} % of the "
+        f"replay on {smi}")
+    return launches
+
+
+def sampled_phase(greedy: dict[str, dict], smi: str) -> dict[str, int]:
+    """Phase 8; returns each kernel's launches on its main path (the
+    CLI's sampled run in each mode)."""
+    import gc
+    import torch
+    dev = torch.device("cuda", 0)
+    sampler_ms = check_sampler(dev, smi)
+    launches: dict[str, int] = {}
+    for mode in ("pum", "int8"):
+        for k, v in sampled_run(mode, greedy[mode], sampler_ms,
+                                smi).items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("greedy decode_ms_per_step with the sampler in the decode graph "
+        "(phases 4-5b, graphs / eager): " + ", ".join(
+            f"{m} {greedy[m]['graph_ms']:.3f} / {greedy[m]['eager_ms']:.3f}"
+            f" (before the sampler, graphs: {PRE_SAMPLER_GREEDY_MS[m]})"
+            for m in SERVE_MODES)
+        + f" on {smi}")
+    return launches
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -1309,7 +1591,7 @@ def main(argv=None) -> int:
         return 0
 
     log(f"phases 1-3 done at {time.perf_counter() - start:.1f} s")
-    launches = serve_phases(smi)
+    launches, greedy = serve_phases(smi)
     log(f"phases 4-5b done at {time.perf_counter() - start:.1f} s")
     for k, v in aes_phase(dev, smi).items():
         launches[k] = launches.get(k, 0) + v
@@ -1319,6 +1601,9 @@ def main(argv=None) -> int:
     for k, v in cnn_launches.items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 7 done at {time.perf_counter() - start:.1f} s")
+    for k, v in sampled_phase(greedy, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 8 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

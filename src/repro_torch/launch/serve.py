@@ -7,10 +7,13 @@ the paged KV pool, on the card by default.
 
 Weights are random, drawn on the device from ``--seed``; ``--reduced``
 serves the arch's miniature (the CPU tests do, with ``--device cpu``).
-``--pum-mode bf16`` serves the float weights unpacked.  On the card the
-scheduler runs each step as a CUDA graph replay (``serve.compiled``).
-Prints throughput and decode milliseconds per step on lines of their
-own, beside the device it ran on.
+``--pum-mode bf16`` serves the float weights unpacked.  ``--temperature``
+is every request's temperature (0, the default, is greedy), each request
+drawing from its own seed, as the reference's CLI serves its trace.  On
+the card the scheduler runs each step as a CUDA graph replay
+(``serve.compiled``).  Prints the trace's sampled share, throughput and
+decode milliseconds per step on lines of their own, beside the device it
+ran on.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens generated per request")
     ap.add_argument("--pum-mode", default="pum",
                     choices=["bf16", "int8", "pum"])
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="every request's sampling temperature (0: greedy)")
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--num-kv-blocks", type=int, default=0,
                     help="pool size (default: slots * ceil(max_len / "
@@ -87,7 +92,9 @@ def main(argv: list[str] | None = None) -> dict:
     reqs = synthetic_workload(n, cfg.vocab_size,
                               min_prompt=args.min_prompt_len,
                               max_prompt=args.prompt_len,
-                              max_new=args.gen, seed=args.seed)
+                              max_new=args.gen,
+                              temperature_choices=(args.temperature,),
+                              seed=args.seed)
     t0 = time.perf_counter()
     out = sched.run(reqs)
     wall_s = time.perf_counter() - t0
@@ -108,6 +115,9 @@ def main(argv: list[str] | None = None) -> dict:
           f"{sched.decode_steps} decode steps, {sched.prefill_chunks} "
           f"prefill chunks; programs {sched.step_programs()}, {graphs} "
           f"CUDA graphs captured in {build_s:.2f} s")
+    sampled = sum(r.temperature > 0 for r in reqs) / len(reqs)
+    print(f"sampled_share={sampled:.3f} (temperature {args.temperature}, "
+          f"a seed a request)")
     print(f"throughput_tok_per_s={toks / wall_s:.2f}")
     print(f"decode_ms_per_step={decode_ms:.3f}")
     return {"scheduler": sched, "requests": reqs, "completions": out,

@@ -9,9 +9,12 @@ for its lifetime, and every later call replays it.  A replay is one
 host call for the 252 MVM launches, 36 attention calls and the small
 ops of a step, which eager dispatch issues one by one from Python.
 
-A step's inputs are a few small int32 tensors.  They live in one static
-buffer on the device, filled from one pinned host staging tensor by a
-single non-blocking copy; the step's integer outputs come back packed
+A step's inputs are a few small int32 tensors; a float input (a
+sampling temperature) travels as its f32 bit pattern in an int32 lane
+(``np.float32(t).view(np.int32)`` on the host, ``.view(torch.float32)``
+in the step), so one buffer still holds them all.  They live in one
+static buffer on the device, filled from one pinned host staging tensor
+by a single non-blocking copy; the step's integer outputs come back packed
 in one int32 tensor, by a single copy.  Anything else the step returns
 (its logits) stays on the device, in ``CompiledStep.aux``, overwritten
 by the next call.

@@ -6,9 +6,10 @@ request's tokens exactly as if it ran alone through it.  The engine
 prepacks ``int8``/``pum`` weights at construction, so serving pays
 quantisation and slicing once, at load.
 
-Greedy sampling only in this slice: the JAX package draws at
-temperature > 0 from threefry keys, which the port does not reproduce
-yet.
+Sampling follows the reference: greedy at temperature <= 0, else a
+Gumbel-max draw from a threefry key (``serve.prng``), keyed by the
+request's seed and folded with the step number, so a seeded request
+draws the reference's tokens.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry
 from repro_torch.models import lm
+from repro_torch.serve import prng
 
 
 class RequestTooLarge(ValueError):
@@ -46,15 +48,38 @@ def make_decode_step(cfg: ModelConfig, kv_len: int | None = None):
     return decode_step
 
 
-def sample_token(logits: torch.Tensor, temperature: float = 0.0
-                 ) -> torch.Tensor:
-    """logits: [B, S, V] -> [B, 1] int32, greedy (first index on ties,
-    as ``jnp.argmax``)."""
-    if float(temperature) > 0.0:
-        raise NotImplementedError(
-            "temperature > 0 is not ported yet (JAX draws from threefry "
-            "keys); only greedy sampling is")
-    return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+def sample_token(logits: torch.Tensor, key: torch.Tensor | None = None,
+                 temperature: float | torch.Tensor = 0.0) -> torch.Tensor:
+    """logits: [B, S, V] -> [B, 1] int32 from the last position.
+
+    Two forms, as the reference's:
+
+    * a scalar ``temperature`` and one key [2] for the whole batch:
+      greedy at ``temperature <= 0`` (no key needed), else
+      ``categorical(key, last / temperature)`` over all of ``[B, V]``;
+    * a vector ``temperature`` [B] (f32) and keys [B, 2]: each row
+      draws from its own key at its own temperature, rows at
+      ``temperature <= 0`` take the argmax.  No value goes to the host,
+      so this form runs inside a captured step.
+
+    Greedy rows take the first index on ties, as ``jnp.argmax``.  The
+    division is by a device tensor: CUDA divides by a host scalar as a
+    multiply by its reciprocal, which can round otherwise.
+    """
+    last = logits[:, -1]
+    if not (isinstance(temperature, torch.Tensor) and temperature.ndim):
+        t = float(temperature)
+        if t <= 0.0:
+            return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        if key is None:
+            raise ValueError("sampling at temperature > 0 needs a key")
+        scale = torch.full((1, 1), t, dtype=last.dtype, device=last.device)
+        return prng.categorical(key, last / scale)[:, None].to(torch.int32)
+    greedy = torch.argmax(last, dim=-1)
+    hot = temperature > 0
+    safe_t = torch.where(hot, temperature, torch.ones_like(temperature))
+    sampled = prng.categorical(key, last / safe_t[:, None])
+    return torch.where(hot, sampled, greedy)[:, None].to(torch.int32)
 
 
 class ServeEngine:
@@ -120,18 +145,24 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate_loop(self, prompt: torch.Tensor, steps: int,
-                      temperature: float = 0.0) -> torch.Tensor:
-        """prompt: [B, S] -> [B, S + steps], one decode step per token."""
+                      temperature: float = 0.0, seed: int = 0
+                      ) -> torch.Tensor:
+        """prompt: [B, S] -> [B, S + steps], one decode step per token.
+        The first token is drawn with ``prng_key(seed)``, and the key is
+        folded with ``i`` before the draw of token ``i + 1``, as the
+        reference's loop does."""
         b, s = prompt.shape
         self.check_window(s, steps)
         prompt = prompt.to(self.device)
         states, logits = self.prefill(prompt)
+        key = prng.prng_key(seed, self.device)
         out = [prompt.to(torch.int32)]
-        tok = sample_token(logits, temperature)
+        tok = sample_token(logits, key, temperature)
         for i in range(steps):
             out.append(tok)
             if i == steps - 1:
                 break
+            key = prng.fold_in(key, i)
             logits, states = self.decode(states, tok, s + i)
-            tok = sample_token(logits, temperature)
+            tok = sample_token(logits, key, temperature)
         return torch.cat(out, dim=1)

@@ -8,10 +8,14 @@ scheduler iteration (:meth:`ContinuousBatchingScheduler.tick`):
     tokens with ``chunked_prefill``, else the whole prompt) through a
     batch-1 step that writes K/V straight into the pool through the
     slot's block-table row; the slot whose last chunk lands samples its
-    first token and joins decode;
+    first token (inside the chunk step, from ``prng_key(seed)``) and
+    joins decode;
   * runs ONE slot-wise decode step over all slots: a per-slot
     ``cache_index`` vector, an active mask, and a block table masked so
-    that rows not decoding write to the trash block.
+    that rows not decoding write to the trash block.  Every row folds its
+    key with ``gen - 1`` and draws at its own temperature; rows at
+    temperature 0 take the argmax.  Greedy and sampled rows share the
+    one step: there is no second decode program.
 
 Both steps are compiled (``serve.compiled``): on the card the decode
 step is the replay of one CUDA graph, and each chunk the replay of one
@@ -26,12 +30,20 @@ request the pool cannot fund yet waits), retirement releases them.
 Oracle equivalence: each request's tokens equal those of the request
 run alone through ``ServeEngine.generate_loop`` — activation scales are
 per input row and the gathered paged view is cropped to the engine
-window, so a row's numerics never depend on its co-tenants.
+window, so a row's numerics never depend on its co-tenants.  That holds
+bit for bit wherever both run the same arithmetic: on the CPU, and on
+the card's ``torch`` backend.  On the ``cuda`` backend the paged steps
+attend through the paged-attention kernel, which sums in another order
+than the solo loop's plain attention over its contiguous cache, so the
+two can part at near-ties; a request served alone through the
+scheduler still gives its tokens in any batch.
 
-This slice serves greedy requests on the dense family.  The contiguous
-scheduler, prefix caching, speculative decoding, tensor parallelism and
-fault-injection hooks of the JAX package are not ported yet; their
-arguments raise ``NotImplementedError``.
+This slice serves the dense family at any temperature, each request
+with its own seed, and its draws are the reference's (``serve.prng``
+reproduces its threefry keys).  The contiguous scheduler, prefix
+caching, speculative decoding, tensor parallelism and fault-injection
+hooks of the JAX package are not ported yet; their arguments raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,15 +58,15 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
-from repro_torch.serve import kv_pool
+from repro_torch.serve import kv_pool, prng
 from repro_torch.serve.compiled import CompiledStep
 from repro_torch.serve.engine import (RequestTooLarge, ServeEngine,
                                       make_decode_step, sample_token)
 
 
 class InvalidRequest(ValueError):
-    """A malformed request (empty prompt, max_tokens < 1, duplicate
-    rid, or an option this slice does not serve)."""
+    """A malformed request (empty prompt, max_tokens < 1 or a duplicate
+    rid)."""
 
 
 class PoolExhausted(RuntimeError):
@@ -69,11 +81,13 @@ class SchedulerStalled(RuntimeError):
 class Request:
     """One generation request.  ``arrival`` is in scheduler steps;
     ``eos_id < 0`` disables EOS; ``max_tokens`` counts every generated
-    token, the EOS included."""
+    token, the EOS included; ``seed`` keys the draws at temperature > 0
+    (``prng_key(seed)``, as the reference's ``PRNGKey(seed)``)."""
     prompt: Sequence[int]
     max_tokens: int
     temperature: float = 0.0
     eos_id: int = -1
+    seed: int = 0
     arrival: int = 0
     rid: int | None = None
 
@@ -114,35 +128,43 @@ def _mask_block_table(block_table: torch.Tensor, active: torch.Tensor
 def make_slot_step(cfg: ModelConfig, kv_len: int):
     """The one-dispatch-per-token core over the paged pool.
 
-    (params, states, cur_tok [B,1], cache_index [B], active [B] bool,
-     eos [B], gen [B], max_toks [B], block_table [B,W])
-      -> (states, tok [B], cache_index', active', gen', done [B],
-          logits [B,1,V])
+    (params, states, cur_tok [B,1], cache_index [B], keys [B,2],
+     active [B] bool, temp [B] f32, eos [B], gen [B], max_toks [B],
+     block_table [B,W])
+      -> (states, tok [B], cache_index', step_keys [B,2], active', gen',
+          done [B], logits [B,1,V])
 
     Every slot runs; ``active`` masks rows out of the counters and, via
-    the masked block table, out of the pool.  Greedy sampling.  The
-    logits ride along for the compiled step, which keeps them on the
-    device."""
+    the masked block table, out of the pool.  Each row's key is folded
+    with its local step number (``gen - 1``, which wraps to 0xFFFFFFFF
+    for an empty slot), as ``generate_loop`` folds with ``i``, and the
+    folded keys come back for the host to keep.  The logits ride along
+    for the compiled step, which keeps them on the device."""
     decode = make_decode_step(cfg, kv_len=kv_len)
 
-    def slot_step(params, states, cur_tok, cache_index, active, eos, gen,
-                  max_toks, block_table):
+    def slot_step(params, states, cur_tok, cache_index, keys, active, temp,
+                  eos, gen, max_toks, block_table):
+        step_keys = prng.fold_in(keys, gen - 1)
         block_table = _mask_block_table(block_table, active)
         logits, states = decode(params, states, cur_tok, cache_index,
                                 block_table=block_table,
                                 write_table=block_table)
-        tok = sample_token(logits)[:, 0]
+        tok = sample_token(logits, step_keys, temp)[:, 0]
         gen = gen + active.to(gen.dtype)
         done = active & ((tok == eos) | (gen >= max_toks))
         cache_index = cache_index + active.to(cache_index.dtype)
         active = active & ~done
-        return states, tok, cache_index, active, gen, done, logits
+        return states, tok, cache_index, step_keys, active, gen, done, \
+            logits
 
     return slot_step
 
 
 class ContinuousBatchingScheduler:
-    """Continuous batching over a fixed pool of decode slots, paged KV.
+    """Continuous batching over a fixed pool of decode slots, paged KV,
+    serving requests at any temperature: each slot carries its request's
+    key and temperature, and greedy and sampled rows run in the one
+    decode step.
 
     ``kv_block_size`` tokens per KV block; ``num_kv_blocks`` sizes the
     pool (default: ``num_slots * ceil(max_len / kv_block_size)``);
@@ -219,6 +241,9 @@ class ContinuousBatchingScheduler:
         self._prefills: dict[int, _PrefillJob] = {}
         self._cur_tok = np.zeros((b, 1), np.int32)
         self._cache_index = np.zeros((b,), np.int32)
+        # each slot's key (uint32 bits as int32) and temperature
+        self._keys = np.zeros((b, 2), np.int32)
+        self._temp = np.zeros((b,), np.float32)
         self._active = np.zeros((b,), bool)
         self._eos = np.full((b,), -1, np.int32)
         self._gen = np.zeros((b,), np.int32)
@@ -246,9 +271,6 @@ class ContinuousBatchingScheduler:
         if req.max_tokens < 1:
             raise InvalidRequest(f"request {req.rid}: max_tokens must be "
                                  f">= 1, got {req.max_tokens}")
-        if req.temperature > 0:
-            raise NotImplementedError(
-                f"request {req.rid}: temperature > 0 is not ported yet")
         self.engine.check_window(len(req.prompt), req.max_tokens)
         need = self._blocks_for(req)
         if need > self.num_kv_blocks:
@@ -315,39 +337,47 @@ class ContinuousBatchingScheduler:
 
     def _decode_fn(self):
         """The slot step over all slots: (cur_tok [B,1], cache_index,
-        active, eos, gen, max_toks [B], block_table [B,W]) -> (tok,
-        cache_index', active', gen', done packed as [5, B]; logits)."""
+        keys [B,2], active, temp (f32 bits), eos, gen, max_toks [B],
+        block_table [B,W]) -> (tok, cache_index', active', gen', done,
+        and the two words of step_keys, packed as [7, B]; logits)."""
         params, states, step = self.params, self.states, self._step
         b, w = self.num_slots, self.table_width
 
-        def decode(cur_tok, cache_index, active, eos, gen, max_toks,
-                   block_table):
+        def decode(cur_tok, cache_index, keys, active, temp, eos, gen,
+                   max_toks, block_table):
             with self.engine.backend_ctx():
-                _, tok, cache_index, active, gen, done, logits = step(
-                    params, states, cur_tok, cache_index, active != 0, eos,
-                    gen, max_toks, block_table)
-            ints = torch.stack([tok, cache_index, active.to(torch.int32),
-                                gen, done.to(torch.int32)])
+                _, tok, cache_index, keys, active, gen, done, logits = step(
+                    params, states, cur_tok, cache_index, keys, active != 0,
+                    temp.view(torch.float32), eos, gen, max_toks,
+                    block_table)
+            ints = torch.cat([torch.stack([tok, cache_index,
+                                           active.to(torch.int32), gen,
+                                           done.to(torch.int32)]), keys.T])
             return ints, logits
 
-        return decode, [(b, 1), (b,), (b,), (b,), (b,), (b,), (b, w)]
+        return decode, [(b, 1), (b,), (b, 2), (b,), (b,), (b,), (b,), (b,),
+                        (b, w)]
 
     def _chunk_fn(self, length: int):
         """One chunk of ``length`` prompt tokens of one slot against the
-        shared pools: (tokens [1,length], start [1], table_row [1,W]) ->
-        (the greedy next token [1, 1]; logits [1,1,V])."""
+        shared pools: (tokens [1,length], start [1], table_row [1,W],
+        key [1,2], temp [1] (f32 bits)) -> (the next token drawn with
+        ``key`` at ``temp`` [1, 1]; logits [1,1,V]).  Only the last
+        chunk's token is kept."""
         params, states, cfg, max_len = (self.params, self.states, self.cfg,
                                         self.max_len)
 
-        def chunk(tokens, start, table_row):
+        def chunk(tokens, start, table_row, key, temp):
             with self.engine.backend_ctx():
                 logits, _ = lm.forward(
                     params, tokens, cfg, states=states, cache_index=start,
                     block_table=table_row, last_only=True, kv_len=max_len,
                     write_table=table_row)
-            return sample_token(logits), logits
+            return sample_token(logits, key, temp.view(torch.float32)), \
+                logits
 
-        return chunk, [(1, length), (1,), (1, self.table_width)]
+        return chunk, [(1, length), (1,), (1, self.table_width), (1, 2),
+                       (1,)]
 
     def step_programs(self) -> dict:
         """How many times each step was built: the counterpart of the
@@ -375,16 +405,18 @@ class ContinuousBatchingScheduler:
             chunk = self.block_size if self.chunked_prefill \
                 else len(pf.prompt)
             c = min(chunk, len(pf.prompt) - pf.pos)
+            req = pf.req
+            key = prng.prng_key(req.seed).numpy()
+            temp = np.float32(req.temperature)
             tok0 = int(self.program(c)(pf.prompt[pf.pos:pf.pos + c],
-                                        pf.pos,
-                                        self._block_table[slot])[0, 0])
+                                        pf.pos, self._block_table[slot],
+                                        key, temp.view(np.int32))[0, 0])
             pf.pos += c
             dispatches += 1
             self.prefill_chunks += 1
             if pf.pos < len(pf.prompt):
                 continue
             del self._prefills[slot]
-            req = pf.req
             if tok0 == req.eos_id or req.max_tokens == 1:
                 reason = "eos" if tok0 == req.eos_id else "length"
                 out[req.rid] = Completion(
@@ -394,6 +426,8 @@ class ContinuousBatchingScheduler:
                 continue
             self._cur_tok[slot, 0] = tok0
             self._cache_index[slot] = len(pf.prompt)
+            self._keys[slot] = key
+            self._temp[slot] = temp
             self._active[slot] = True
             self._eos[slot] = req.eos_id if req.eos_id >= 0 else -1
             self._gen[slot] = 1
@@ -413,12 +447,13 @@ class ContinuousBatchingScheduler:
             was_active = self._active.copy()
             prog = self.program("decode")
             t0 = time.perf_counter()
-            ints = prog(self._cur_tok, self._cache_index, self._active,
-                        self._eos, self._gen, self._max_toks,
-                        self._block_table)
+            ints = prog(self._cur_tok, self._cache_index, self._keys,
+                        self._active, self._temp.view(np.int32), self._eos,
+                        self._gen, self._max_toks, self._block_table)
             self.decode_seconds += time.perf_counter() - t0
             self.decode_steps += 1
-            tok, self._cache_index, active, self._gen, done = ints
+            tok, self._cache_index, active, self._gen, done = ints[:5]
+            self._keys = ints[5:].T.copy()
             self._cur_tok = tok[:, None].copy()
             self._active = active.astype(bool)
             done = done.astype(bool)
@@ -499,10 +534,14 @@ class ContinuousBatchingScheduler:
 def synthetic_workload(n_requests: int, vocab_size: int, *,
                        min_prompt: int = 1, max_prompt: int = 8,
                        max_new: int = 16, mean_interarrival: float = 0.0,
+                       temperature_choices: Sequence[float] = (0.0,),
                        seed: int = 0) -> list[Request]:
-    """A seeded trace of greedy requests: prompt lengths uniform in
-    ``[min_prompt, max_prompt]``, ``max_new`` tokens each, no EOS, and
-    exponential inter-arrival gaps in scheduler steps (0 = a burst)."""
+    """A seeded trace: prompt lengths uniform in ``[min_prompt,
+    max_prompt]``, ``max_new`` tokens each, no EOS, exponential
+    inter-arrival gaps in scheduler steps (0 = a burst), and a
+    temperature drawn from ``temperature_choices`` and a seed for each
+    request.  The temperatures and seeds are drawn after everything
+    else, so the prompts and arrivals do not depend on them."""
     rng = np.random.default_rng(seed)
     t = 0.0
     reqs = []
@@ -513,7 +552,10 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
         reqs.append(Request(
             prompt=rng.integers(0, vocab_size, size=plen).tolist(),
             max_tokens=max_new, arrival=int(t), rid=i))
-    return reqs
+    temps = rng.choice(list(temperature_choices), size=n_requests)
+    seeds = rng.integers(0, 2**31 - 1, size=n_requests)
+    return [dataclasses.replace(r, temperature=float(temp), seed=int(s))
+            for r, temp, s in zip(reqs, temps, seeds)]
 
 
 def oracle_completion(engine: ServeEngine, req: Request) -> list[int]:
@@ -522,7 +564,7 @@ def oracle_completion(engine: ServeEngine, req: Request) -> list[int]:
     prompt = torch.tensor([list(req.prompt)], dtype=torch.int32,
                           device=engine.device)
     full = engine.generate_loop(prompt, req.max_tokens,
-                                temperature=req.temperature)
+                                temperature=req.temperature, seed=req.seed)
     gen = [int(t) for t in full[0, prompt.shape[1]:].tolist()]
     if req.eos_id >= 0 and req.eos_id in gen:
         gen = gen[:gen.index(req.eos_id) + 1]

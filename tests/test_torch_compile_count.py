@@ -7,9 +7,13 @@ the counterpart of the reference's jit cache sizes).
 On the CPU a compiled step runs eagerly through its static buffers, so
 ``cuda_graphs=True`` and ``False`` run the same code here and must give
 the same completions, equal to the solo oracle's and to the JAX
-scheduler's on the same trace.  Graph capture itself is exercised on the
-card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+scheduler's on the same trace.  A trace that mixes temperatures builds
+the greedy trace's programs: the sampler is part of the one decode
+step.  Graph capture itself is exercised on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import dataclasses
+
 import jax
 import pytest
 
@@ -84,3 +88,24 @@ def test_compiled_and_eager_equal_oracle_and_jax(models):
         assert got == oracle_completion(sched.engine, req)
         assert got == jout[req.rid].tokens, (req.rid, got,
                                              jout[req.rid].tokens)
+
+
+def test_mixed_temperatures_build_the_greedy_programs(models):
+    """Greedy and sampled rows share one decode program: a trace at
+    temperatures 0, 0.7 and 1.0 builds exactly the programs of the same
+    trace served greedy, a second run builds nothing, and every
+    completion equals its solo oracle."""
+    lengths = [BLOCK, 2 * BLOCK, 6]
+    greedy = _sched(models)
+    greedy.run(_reqs(lengths))
+    mixed = _sched(models)
+    reqs = [dataclasses.replace(r, temperature=t, seed=100 + r.rid)
+            for r, t in zip(_reqs(lengths), (0.0, 0.7, 1.0))]
+    out = mixed.run(reqs)
+    assert mixed.step_programs() == greedy.step_programs() == {
+        "decode": 1, "chunk": {2: 1, BLOCK: 1}}
+    again = mixed.run(reqs)
+    assert mixed.step_programs() == greedy.step_programs()
+    for req in reqs:
+        assert out[req.rid].tokens == again[req.rid].tokens == \
+            oracle_completion(mixed.engine, req)

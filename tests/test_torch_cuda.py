@@ -564,3 +564,66 @@ def test_reset_keeps_the_graphs_valid(dev, mode):
     for req in reqs:
         assert second[req.rid].tokens == first[req.rid].tokens \
             == oracle_completion(sched.engine, req)
+
+
+# ---------------------------------------------------------------------------
+# Sampling: keyed draws on the card and the sampled serving step
+# ---------------------------------------------------------------------------
+
+# CUDA's logf and the CPU's log may differ by an ulp: Gumbel values
+# within 2 ulps of max(|g|, 1), and a draw may differ only where the
+# CPU's top-2 score margin is within 1e-5 (far above that difference)
+GUMBEL_ULPS = 2
+NEAR_TIE = 1e-5
+
+
+@pytest.mark.cuda
+def test_card_draws_equal_cpu_draws(dev):
+    from repro_torch.serve import prng
+    kat = prng.threefry2x32(*(
+        torch.from_numpy(np.array([w], np.uint32).view(np.int32)).to(dev)
+        for w in (0x13198a2e, 0x03707344, 0x243f6a88, 0x85a308d3)))
+    assert [int(t.cpu().numpy().view(np.uint32)[0]) for t in kat] == \
+        [0xc4923a9c, 0x483df7a0]
+    keys = torch.stack([prng.prng_key(s) for s in (0, 1, 2**31 - 1, 77)])
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 4099)).astype(np.float32))
+    for key in (keys[1], keys):                 # one key, a key a row
+        shape = (4, 4099) if key.ndim == 1 else (4099,)
+        on = {f.__name__: f(key.to(dev), shape).cpu()
+              for f in (prng.random_bits, prng.uniform, prng.gumbel)}
+        off = {f.__name__: f(key, shape)
+               for f in (prng.random_bits, prng.uniform, prng.gumbel)}
+        assert torch.equal(on["random_bits"], off["random_bits"])
+        assert torch.equal(on["uniform"], off["uniform"])
+        g, want = on["gumbel"].numpy(), off["gumbel"].numpy()
+        ulps = np.abs(g - want) / np.spacing(
+            np.maximum(np.abs(want), 1).astype(np.float32))
+        assert ulps.max() <= GUMBEL_ULPS
+        got = prng.categorical(key.to(dev), logits.to(dev)).cpu()
+        scores = np.sort(want + logits.numpy(), axis=-1)
+        near = torch.from_numpy(scores[:, -1] - scores[:, -2] <= NEAR_TIE)
+        assert torch.equal(got[~near],
+                           prng.categorical(key, logits)[~near])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_sampled_graph_and_eager_equal(dev, mode):
+    """A trace at temperatures 0, 0.7 and 1.0 with graphs and eagerly:
+    the same tokens, each equal to its solo oracle on the card, and one
+    decode program."""
+    from repro_torch.serve import oracle_completion, synthetic_workload
+    cfg, params = _served(dev, mode)
+    reqs = synthetic_workload(5, cfg.vocab_size, min_prompt=3,
+                              max_prompt=20, max_new=6,
+                              temperature_choices=(0.0, 0.7, 1.0), seed=6)
+    assert {r.temperature for r in reqs} == {0.0, 0.7, 1.0}
+    out = {}
+    for graphs in (True, False):
+        sched = _sched(dev, cfg, params, graphs)
+        out[graphs] = {r: c.tokens for r, c in sched.run(reqs).items()}
+        assert sched.step_programs()["decode"] == 1
+    assert out[True] == out[False]
+    for req in reqs:
+        assert out[True][req.rid] == oracle_completion(sched.engine, req)

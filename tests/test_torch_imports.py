@@ -19,7 +19,8 @@ from repro_torch.config import PUMConfig
 from repro_torch.core.hct import DarthPUMDevice
 from repro_torch.launch import aes, serve
 from repro_torch.models import lm
-from repro_torch.serve import ContinuousBatchingScheduler, ServeEngine
+from repro_torch.serve import (ContinuousBatchingScheduler, ServeEngine,
+                               oracle_completion)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -96,6 +97,22 @@ def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
     # every prompt of 3..9 tokens streams in ceil(len / 4) chunks
     assert sched.prefill_chunks == sum(-(-len(r.prompt) // 4)
                                        for r in res["requests"])
+
+
+def test_serve_cli_samples_at_its_temperature(capsys):
+    """``--temperature`` is every request's temperature, each request
+    seeded: the completions equal their solo oracle's."""
+    res = serve.main(["--reduced", "--device", "cpu", "--batch-slots", "2",
+                      "--requests", "3", "--prompt-len", "7", "--gen", "5",
+                      "--kv-block-size", "4", "--chunked-prefill",
+                      "--temperature", "0.7"])
+    assert "sampled_share=1.000" in capsys.readouterr().out
+    reqs = res["requests"]
+    assert {r.temperature for r in reqs} == {0.7}
+    assert len({r.seed for r in reqs}) == 3
+    for req in reqs:
+        assert res["completions"][req.rid].tokens == oracle_completion(
+            res["scheduler"].engine, req)
 
 
 def test_aes_cli_on_the_cpu_when_asked(capsys):

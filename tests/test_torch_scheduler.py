@@ -10,6 +10,14 @@ of 4, chunked prefill, three staggered greedy requests.
     legitimately diverge);
   * inside the port, the scheduler's tokens equal its own solo oracle
     (``ServeEngine.generate_loop``) bit for bit.
+
+Sampled traces (temperatures 0, 0.7 and 1.0, a seed a request) run with
+JAX in its partitionable threefry layout, which the port reproduces
+(``tests/test_torch_sampling.py``): there the port emits JAX's token
+wherever the top-2 margin of JAX's Gumbel-perturbed scores
+(``gumbel + logits / t``) exceeds 10x the logit tolerance over ``t`` --
+the greedy rule, scaled by the temperature, since the scores carry the
+logits' difference divided by ``t``.
 """
 import jax
 import jax.numpy as jnp
@@ -52,29 +60,63 @@ def ref(request):
     js = JSched(jcfg, raw, kernel_backend="xla", **SCHED)
     out = js.run([JRequest(p, m, arrival=a) for p, m, a in TRACE])
     tokens = {rid: out[rid].tokens for rid in out}
-    logits = {}
-    eng = js.engine
-    for rid, (prompt, _, _) in enumerate(TRACE):
-        states, lg, _ = eng.prefill(jnp.asarray([prompt], jnp.int32))
-        steps = [np.asarray(lg)[0, -1]]
-        for i, tok in enumerate(tokens[rid][:-1]):
-            with eng.mesh_ctx():
-                lg, states = eng._decode(eng.params, states,
-                                         jnp.asarray([[tok]], jnp.int32),
-                                         jnp.int32(len(prompt) + i))
-            steps.append(np.asarray(lg)[0, -1])
-        logits[rid] = np.stack(steps)
+    logits = {rid: _jax_logits_along(js.engine, prompt, tokens[rid])
+              for rid, (prompt, _, _) in enumerate(TRACE)}
     tcfg = tsmall(pum=TPUM(mode=mode), **KW)
     params = bridge.params_from_numpy(
         to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
     tol = BF16_MODE_LOGIT_TOL if mode == "bf16" else LOGIT_TOL
     return dict(mode=mode, tcfg=tcfg, params=params, tokens=tokens,
-                logits=logits, tol=tol)
+                logits=logits, tol=tol, jcfg=jcfg, raw=raw,
+                jengine=js.engine)
+
+
+def _jax_logits_along(eng, prompt, tokens):
+    """JAX's last-position logits [len(tokens), V] before each of
+    ``tokens``, fed one by one through its solo prefill and decode."""
+    states, lg, _ = eng.prefill(jnp.asarray([prompt], jnp.int32))
+    steps = [np.asarray(lg)[0, -1]]
+    for i, tok in enumerate(tokens[:-1]):
+        with eng.mesh_ctx():
+            lg, states = eng._decode(eng.params, states,
+                                     jnp.asarray([[tok]], jnp.int32),
+                                     jnp.int32(len(prompt) + i))
+        steps.append(np.asarray(lg)[0, -1])
+    return np.stack(steps)
 
 
 def _margin(row):
     top2 = np.sort(row)[-2:]
     return float(top2[1] - top2[0])
+
+
+def _scores(logits, temperature, seed):
+    """JAX's per-step scores at ``temperature``: the logits at t <= 0,
+    else the Gumbel noise of the step's key plus ``logits / t``; the key
+    is ``PRNGKey(seed)`` for the first token, folded with ``i`` before
+    token ``i + 1`` (``generate_loop``'s chain, the slot step's too)."""
+    if temperature <= 0:
+        return logits
+    key, rows = jax.random.PRNGKey(seed), []
+    for i, row in enumerate(logits):
+        if i:
+            key = jax.random.fold_in(key, i - 1)
+        rows.append(np.asarray(jax.random.gumbel(key, row.shape))
+                    + row / np.float32(temperature))
+    return np.stack(rows)
+
+
+def _agree_outside_near_ties(got, want, scores, tol, temperature):
+    """``got`` equals ``want`` up to their first difference, which must
+    fall on a step whose JAX score margin is within 10x ``tol`` (over
+    ``t`` when sampling): past it the two legitimately diverge.  Returns
+    the steps that agree."""
+    bound = 10 * tol / (temperature if temperature > 0 else 1.0)
+    for i, w in enumerate(want):
+        if got[i] != w:
+            assert _margin(scores[i]) <= bound, (i, got, want)
+            return i
+    return len(want)
 
 
 def test_teacher_forced_logits_match(ref):
@@ -231,3 +273,68 @@ def test_port_scheduler_raises_on_a_request_never_funded(ref):
     assert held is not None
     with pytest.raises(SchedulerStalled, match="never be funded"):
         sched.run([Request([1, 2, 3], 3), Request([4, 5], 2)])
+
+
+# TRACE's prompts at three temperatures, a seed each
+SAMPLED = [(p, m, a, t, seed) for (p, m, a), t, seed in
+           zip(TRACE, (0.0, 0.7, 1.0), (11, 2**31 - 1, 5))]
+
+
+@pytest.fixture(scope="module")
+def sampled(ref):
+    """JAX's scheduler on the sampled trace, in the partitionable
+    threefry layout, and its per-step scores along its own tokens."""
+    with jax.threefry_partitionable(True):
+        js = JSched(ref["jcfg"], ref["raw"], kernel_backend="xla", **SCHED)
+        out = js.run([JRequest(p, m, arrival=a, temperature=t, seed=seed)
+                      for p, m, a, t, seed in SAMPLED])
+        tokens = {rid: out[rid].tokens for rid in out}
+        scores = {rid: _scores(_jax_logits_along(js.engine, p, tokens[rid]),
+                               t, seed)
+                  for rid, (p, _, _, t, seed) in enumerate(SAMPLED)}
+    return dict(tokens=tokens, scores=scores)
+
+
+def test_sampled_scheduler_matches_jax_and_own_oracle(ref, sampled):
+    """Temperatures 0, 0.7 and 1.0 in one batch: every request equals its
+    solo ``generate_loop`` bit for bit, JAX's scheduler outside its
+    near-ties, and the temperature-0 request the greedy run's tokens."""
+    sched = ContinuousBatchingScheduler(ref["tcfg"], ref["params"],
+                                        device="cpu", **SCHED)
+    reqs = [Request(p, m, arrival=a, temperature=t, seed=seed)
+            for p, m, a, t, seed in SAMPLED]
+    out = sched.run(reqs)
+    compared = 0
+    for rid, req in enumerate(reqs):
+        got = out[rid].tokens
+        assert len(got) == req.max_tokens
+        assert got == oracle_completion(sched.engine, req)
+        compared += _agree_outside_near_ties(
+            got, sampled["tokens"][rid], sampled["scores"][rid], ref["tol"],
+            req.temperature)
+    assert compared >= 6
+    greedy = sched.run([Request(p, m, arrival=a) for p, m, a in TRACE])
+    assert out[0].tokens == greedy[0].tokens
+    # the sampled requests did sample: not every token is the argmax
+    assert any(out[rid].tokens != greedy[rid].tokens for rid in (1, 2))
+
+
+@pytest.mark.parametrize("temperature,seed", [(0.7, 3), (1.0, 2**31 - 1)])
+def test_generate_loop_sampled_matches_jax(ref, temperature, seed):
+    """The port's solo loop with ``seed`` at ``temperature`` against JAX's,
+    under the same margin rule."""
+    prompt, steps = [9, 2, 6, 5, 3], 8
+    eng = ContinuousBatchingScheduler(ref["tcfg"], ref["params"],
+                                      device="cpu", **SCHED).engine
+    got = eng.generate_loop(torch.tensor([prompt], dtype=torch.int32), steps,
+                            temperature=temperature, seed=seed)
+    got = got[0, len(prompt):].tolist()
+    jeng = ref["jengine"]
+    with jax.threefry_partitionable(True):
+        want = jeng.generate_loop(jnp.asarray([prompt], jnp.int32), steps,
+                                  temperature=temperature, seed=seed)
+        want = np.asarray(want)[0, len(prompt):].tolist()
+        scores = _scores(_jax_logits_along(jeng, prompt, want), temperature,
+                         seed)
+    assert _agree_outside_near_ties(got, want, scores, ref["tol"],
+                                    temperature) >= 2
