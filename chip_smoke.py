@@ -87,20 +87,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (graphs and eager), tokens/s, a decode replay's device ms and the
    sampler's share of it; greedy decode ms/step of phases 4-5b beside
    those recorded before the decode graph held the sampler (PERF.md).
-9. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-8) must have launched there;
+9. contiguous — the reference's default serving paths, in ``pum`` and
+   ``int8``: one layer's online softmax (``_chunked_attention``) at a
+   4096-token prompt's shapes against the plain composition, within the
+   bound derived at CHUNK_ATTN_REL; K1 and K2 alone at M = 4096 (a
+   monolithic prefill's rows) bit for bit, timed beside their bounds and
+   ``torch._int_mm``.  Then the CLI with ``--kv-block-size 0`` on phase
+   4's trace (contiguous windows: one prefill program a prompt length,
+   one decode program, no K3), gated: 252 MVM launches a step and a
+   prefill and none of K3, each program built once, the same trace
+   again building nothing, graphs == eager, and the tokens equal to
+   the paged scheduler's on the ``torch`` backend with monolithic
+   prefill on both; then phase 8's six requests plus one of 4096
+   prompt tokens (its prefill through the online softmax) on a
+   scheduler of 4113 positions, each completion equal to the request
+   served alone through ``generate_loop`` on the ``cuda`` backend, and
+   the long prefill timed (time to first token) and profiled; then the
+   static batch (``--batch-slots 0 --batch 4 --prompt-len 64 --gen
+   16``), compiled prefill and decode step and ``--loop``, at t = 0 and
+   0.7, gated equal token for token, seeds reproducing with nothing new
+   built, half the steps replaying the same two programs, graphs ==
+   eager; its rate build included and steady.  Prints decode ms/step (graphs and eager), tokens/s,
+   peak memory, and a decode replay's device ms beside the paged
+   scheduler's on the same trace, timed in turns (paged, contiguous,
+   contiguous, paged).
+10. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-9) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
-   (``cnn_shapes``).
+   (``cnn_shapes``), K1's and K2's their rows at M = 4096
+   (``prefill_shape``).
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
-``--only cnn`` runs phases 1, 2 and 7 alone.
+``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
+phases 1, 2 and 9.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -233,6 +260,14 @@ def deterministic(fn) -> bool:
     return torch.equal(a, b)
 
 
+def mvm_ops(m: int, k: int, n: int) -> int:
+    """The int8 operations of a bit-sliced MVM over any number of planes:
+    sum_s (x @ P_s) << bps*s equals x @ (sum_s P_s << bps*s) exactly in
+    int32, and that sum is the int8 weight the planes were sliced from,
+    so the least work is one [M,K] x [K,N] int8 product."""
+    return 2 * m * k * n
+
+
 def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
     import torch
     from repro_torch.core import bitslice
@@ -297,8 +332,10 @@ def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
             p2 = device_ms(lambda: ops.bitslice_mvm_planes(
                 x, rw.next(), bits_per_slice=8, backend="torch"), iters=5)
             lib = device_ms(lambda: torch._int_mm(xpad, rw.next()[0]))
+            # the planes recombine to wq exactly (mvm_ops), so the
+            # function's work is one int8 GEMM; the planes' bytes count
             b1 = max((m * k + 4 * k * n + 4 * m + 4 * m * n) / bw,
-                     2 * 4 * m * k * n / int8_rate) * 1e3
+                     mvm_ops(m, k, n) / int8_rate) * 1e3
             b2 = max((m * k + k * n + 4 * m * n) / bw,
                      2 * m * k * n / int8_rate) * 1e3
             log(f"mvm M={m} K={k} N={n} (K1 split {splits} ways over K): "
@@ -592,11 +629,12 @@ MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm",
 
 
 def launch_gate(mode: str, layers: int, steps: int, chunks: int,
-                launches: dict) -> dict:
+                launches: dict, paged: bool = True) -> dict:
     """Every decode step and prefill chunk: 7 launches a layer of the
-    mode's MVM kernel and none of the other, one K3 call a layer."""
+    mode's MVM kernel and none of the other, and one K3 call a layer
+    over the paged pool, none over contiguous windows."""
     want = {"bitslice_mvm_scaled": 0, "bitslice_mvm": 0,
-            "paged_attention": layers * (steps + chunks)}
+            "paged_attention": layers * (steps + chunks) if paged else 0}
     if MVM_OF_MODE[mode]:
         want[MVM_OF_MODE[mode]] = 7 * layers * (steps + chunks)
     got = {k: launches.get(k, 0) for k in want}
@@ -814,20 +852,21 @@ def graph_vs_eager(sched) -> None:
 def step_device_ms(sched, temps=None) -> float:
     """Device time of one replay of the decode graph, between CUDA
     events, every slot active at a depth of 60 tokens (the trace's
-    middle) through its own blocks (the pool is idle after the run), at
-    temperatures ``temps`` (default: all greedy; the graph runs the
-    sampler either way)."""
+    middle) through its own blocks or in its own window (the scheduler
+    is idle after the run), at temperatures ``temps`` (default: all
+    greedy; the graph runs the sampler either way)."""
     import numpy as np
     prog = sched.program("decode")
     b, w = sched.num_slots, sched.table_width
-    table = np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w)
+    table = [np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w)] \
+        if sched.paged else []
     ones = np.ones(b, np.int32)
     temps = np.zeros(b, np.float32) if temps is None \
         else np.asarray(temps, np.float32)
     keys = np.stack([np.zeros(b, np.int32), np.arange(b, dtype=np.int32)],
                     axis=1)
     prog.stage(np.zeros((b, 1), np.int32), 60 * ones, keys, ones,
-               temps.view(np.int32), -ones, ones, (1 << 20) * ones, table)
+               temps.view(np.int32), -ones, ones, (1 << 20) * ones, *table)
     return event_ms(prog.launch, reps=20)
 
 
@@ -1126,7 +1165,7 @@ def check_cnn_mvm(dev, gpu_name: str) -> list[dict]:
         lib = device_ms(lambda: torch._int_mm(xl, wl), iters=10)
         s = 4                        # planes of 8-bit weights, 2-bit cells
         nbytes = m * k + 4 * s * k * n + 4 * m * n
-        by_bytes, by_ops = nbytes / bw * 1e3, 2 * s * m * k * n / int8_rate \
+        by_bytes, by_ops = nbytes / bw * 1e3, mvm_ops(m, k, n) / int8_rate \
             * 1e3
         bound = max(by_bytes, by_ops)
         log(f"cnn mvm {name} M={m} K={k} N={n} S={s} (grid z "
@@ -1512,6 +1551,414 @@ def sampled_phase(greedy: dict[str, dict], smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: contiguous serving (contiguous windows, online softmax, the
+# static batch)
+# ---------------------------------------------------------------------------
+
+# phase 4's trace served from contiguous windows: the CLI's defaults
+# but for the KV layout (no blocks, so no chunked prefill)
+CONTIG_ARGS = [a for a in SERVE_ARGS if a != "--chunked-prefill"]
+CONTIG_ARGS[CONTIG_ARGS.index("--kv-block-size") + 1] = "0"
+# one request of LONG_PROMPT tokens, past 2 * CHUNK_Q: its prefill runs
+# the online softmax at full width, and every row of the scheduler then
+# attends over a window of LONG_MAX_LEN keys
+LONG_PROMPT, LONG_TOKENS = 4096, 16
+LONG_MAX_LEN = LONG_PROMPT + LONG_TOKENS + 1
+LONG_TEMP, LONG_SEED = 0.7, 2001
+# the static batch of the reference CLI's default run
+STATIC_ARGS = ["--arch", "qwen2.5-3b", "--batch-slots", "0", "--batch",
+               "4", "--prompt-len", "64", "--gen", "16", "--seed", "0",
+               "--device", "cuda"]
+STATIC_TEMPS = (0.0, 0.7)
+# _chunked_attention against the plain composition, bf16 K/V: each
+# rounds p to bf16 (2^-8 relative; the online softmax rounds it against
+# the running max, the plain one after normalising) and its p @ V
+# products to bf16 (the online softmax each key block's partial sum,
+# the plain one the output), so each is within 2^-7 of the exact
+# output, relative to E = sum_t p_t |v_t|, the p-weighted mean |V| of
+# that output element: |chunked - plain| <= 2^-6 E, plus 1e-6 for the
+# f32 sums' order (scores and exp agree to ~1e-7 relative).  E is
+# read in the same run, from the plain composition's f32 probabilities.
+CHUNK_ATTN_REL = 2.0 ** -6
+CHUNK_ATTN_ABS = 1e-6
+# K1 / K2 at a monolithic prefill's M on Qwen2.5-3B's gate/up shape
+PREFILL_MVM = (LONG_PROMPT, 2048, 11008)
+
+
+def check_chunked_attention(dev, smi: str) -> None:
+    """One layer's ``_chunked_attention`` at the 4096-token prompt's
+    shapes (Qwen2.5-3B's 2 KV heads of 8 queries, hd 128, a window of
+    LONG_MAX_LEN bf16 keys) against the plain composition over the same
+    queries and keys, within the bound derived at CHUNK_ATTN_REL, and
+    both timed."""
+    import torch
+    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.models import attention
+    g = torch.Generator(device=dev).manual_seed(11)
+    s, t = LONG_PROMPT, LONG_MAX_LEN
+    q = torch.randn((1, s, 2, 8, 128), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, t, 2, 128), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    mask = torch.arange(t, device=dev)[None, :] <= torch.arange(
+        s, device=dev)[:, None]
+    got = attention._chunked_attention(q, k, v, zero, 0.0)
+    plain = ref.plain_attention(q, k, v, mask, 0.0).float()
+    scores = torch.einsum("bskgd,btkd->bksgt", q.float(), k.float()) \
+        / math.sqrt(128)
+    probs = ref.softmax(torch.where(mask[None, None, :, None, :], scores,
+                                    torch.full((), ref.NEG_INF,
+                                               device=dev)), 0.0)
+    weighted = torch.einsum("bksgt,btkd->bskgd", probs, v.float().abs())
+    del scores, probs
+    err = (got - plain).abs()
+    bound = CHUNK_ATTN_REL * weighted + CHUNK_ATTN_ABS
+    finite = bool(torch.isfinite(got).all())
+    worst = (err / bound).max().item()
+    ms = event_ms(lambda: attention._chunked_attention(q, k, v, zero, 0.0),
+                  reps=3)
+    plain_ms = event_ms(lambda: ref.plain_attention(q, k, v, mask, 0.0),
+                        reps=3)
+    log(f"chunked attention S={s} T={t} KV=2 G=8 hd=128 bf16: max|chunked "
+        f"- plain| = {err.max().item():.3g}, at most {worst:.3f} of the "
+        f"bound 2^-6 E + 1e-6 (max E {weighted.max().item():.3g}, max|out| "
+        f"{plain.abs().max().item():.3g}), finite {finite} | online "
+        f"softmax {ms:.3f} ms, plain composition {plain_ms:.3f} ms on {smi}")
+    if not finite or worst > 1.0:
+        raise AssertionError("chunked attention outside its bound")
+
+
+def check_prefill_mvm(dev, gpu_name: str) -> dict[str, dict]:
+    """K1 and K2 alone at a monolithic prefill's M (PREFILL_MVM), bit for
+    bit against their plain versions, timed beside their bounds and
+    ``torch._int_mm``.  Returns each kernel's row."""
+    import torch
+    from repro_torch.core import bitslice
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.bitslice_mvm import ops
+    bw, _, int8_rate = peaks(gpu_name)
+    m, k, n = PREFILL_MVM
+    g = torch.Generator(device=dev).manual_seed(12)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
+    one = wq.to(torch.int8)[None]
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((m, 1), generator=g, device=dev) * 1e-3
+    calls = {
+        "bitslice_mvm_scaled": lambda backend: ops.bitslice_mvm_planes_scaled(
+            x, planes, scale, backend=backend),
+        "bitslice_mvm": lambda backend: ops.bitslice_mvm_planes(
+            x, one, bits_per_slice=8, backend=backend)}
+    planes_of = {"bitslice_mvm_scaled": 4, "bitslice_mvm": 1}
+    lib = device_ms(lambda: torch._int_mm(x, one[0]), iters=5)
+    plan = ops.mvm_plan(m, k, n, 4, registry.device_props(dev.index))
+    rows = {}
+    for name, call in calls.items():
+        got, want = call("cuda"), call("torch")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want) or not deterministic(
+                lambda: call("cuda")):
+            raise AssertionError(f"{name} at M={m} K={k} N={n}: max|diff| "
+                                 f"{err}, or two calls differ")
+        del got, want
+        ps = planes_of[name]
+        out_bytes = 4 * m * n
+        nbytes = m * k + ps * k * n + out_bytes + (4 * m if ps == 4 else 0)
+        by_bytes = nbytes / bw * 1e3
+        by_ops = mvm_ops(m, k, n) / int8_rate * 1e3
+        t = device_ms(lambda: call("cuda"), iters=5)
+        p = device_ms(lambda: call("torch"), iters=2, reps=2)
+        bound = max(by_bytes, by_ops)
+        log(f"prefill mvm {name} M={m} K={k} N={n} S={ps} ({plan.row_tiles} "
+            f"row tiles of {plan.mt}, {plan.col_tiles} column tiles): exact, "
+            f"two calls bit-equal | kernel {t:.4f} ms (plain {p:.4f}, bound "
+            f"{bound:.4f} by {'bytes' if by_bytes >= by_ops else 'ops'}, "
+            f"{share(bound, t)} of bound) | _int_mm {lib:.4f} ms")
+        rows[name] = dict(shape=f"M={m} K={k} N={n} S={ps}", max_abs_err=err,
+                          ms=t, plain_ms=p, bound_ms=bound,
+                          bound_by="bytes" if by_bytes >= by_ops
+                          else "operations", library_ms=lib)
+    return rows
+
+
+def first_difference(a: dict, b: dict) -> dict:
+    """By request: the first token where ``a`` and ``b`` differ (None:
+    equal)."""
+    return {rid: next((i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
+                       if x != y), None) for rid in a}
+
+
+def long_request(vocab: int):
+    """The LONG_PROMPT-token request, its prompt drawn from LONG_SEED."""
+    import torch
+    from repro_torch.serve import Request
+    g = torch.Generator().manual_seed(LONG_SEED)
+    prompt = torch.randint(0, vocab, (LONG_PROMPT,), generator=g).tolist()
+    return Request(prompt, LONG_TOKENS, temperature=LONG_TEMP,
+                   seed=LONG_SEED, rid=6)
+
+
+def contiguous_long(sched, reqs, mode: str, smi: str) -> None:
+    """Phase 4's requests at phase 8's temperatures plus the 4096-token
+    request on a contiguous scheduler of LONG_MAX_LEN, gated against
+    each request served alone through ``generate_loop`` on the same
+    (cuda) backend; the long prompt's prefill timed and profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.serve import ContinuousBatchingScheduler
+    from repro_torch.serve import oracle_completion, prng
+    cfg = sched.cfg
+    big = ContinuousBatchingScheduler(cfg, sched.params,
+                                      num_slots=sched.num_slots,
+                                      max_len=LONG_MAX_LEN, kv_block_size=0,
+                                      device=sched.device)
+    long_req = long_request(cfg.vocab_size)
+    trace = reqs + [long_req]
+    run = timed_run(big, trace)
+    launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+                run["launches"], paged=False)
+    progs = big.step_programs()
+    lengths = {len(r.prompt) for r in trace}
+    t0 = time.perf_counter()
+    solo = {r.rid: oracle_completion(big.engine, r) for r in trace}
+    solo_s = time.perf_counter() - t0
+    gates = {
+        "each completion equals its request alone through generate_loop "
+        "(cuda backend)": run["tokens"] == solo,
+        "16 tokens a request": all(len(t) == 16
+                                   for t in run["tokens"].values()),
+        "one decode program, one prefill program a prompt length":
+            progs == {"decode": 1, "prefill": {n: 1 for n in lengths}},
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    replay_ms = step_device_ms(big)
+    log(f"contiguous {mode} long: 6 requests at {list(SAMPLED_TEMPS)} + one "
+        f"of {LONG_PROMPT} prompt tokens at t = {LONG_TEMP}, window "
+        f"{LONG_MAX_LEN}; launches {run['launches']} over {run['steps']} "
+        f"decode steps + {run['chunks']} prefills; programs {progs}; "
+        f"decode_ms_per_step {run['decode_ms']:.3f}, a decode replay "
+        f"{replay_ms:.4f} ms (4 rows over {LONG_MAX_LEN} keys), peak_mem_GB "
+        f"{run['peak_gb']:.2f}; solo runs {solo_s:.1f} s; gates failed: "
+        f"{failed}")
+    if failed:
+        diff = first_difference(run["tokens"], solo)
+        raise AssertionError(f"contiguous {mode} long: {failed}; first "
+                             f"differences {diff}")
+    # the long prompt's prefill (time to first token): its program
+    # replayed into the idle slot 0
+    prog = big.program(LONG_PROMPT)
+    key = prng.prng_key(long_req.seed).numpy()
+    prog.stage([long_req.prompt], 0, key,
+               np.float32(long_req.temperature).view(np.int32))
+    ttft_ms = event_ms(prog.launch, reps=3)
+    wall, by_name = kernel_times(prog.launch)
+    if by_name:
+        total = sum(by_name.values()) / 1e3
+        mvm = sum(us for name, us in by_name.items()
+                  if "bitslice_mvm_kernel" in name) / 1e3
+        prof = (f"under the profiler {total:.3f} ms of kernels, the MVM "
+                f"kernel {mvm:.3f} ms ({100 * mvm / total:.1f} %); top: "
+                f"{top_kernels(by_name, 5)}")
+    else:
+        prof = "the profiler saw no device time (not measured)"
+    log(f"contiguous {mode} long prefill: {LONG_PROMPT} tokens, one replay "
+        f"{ttft_ms:.3f} ms of device time (time to first token), "
+        f"{prog.launches} launches; {prof} on {smi}")
+    del big
+    registry.reset_launches()
+
+
+def static_phase(mode: str, smi: str) -> dict[str, int]:
+    """The CLI's static batch (``--batch-slots 0``) with the compiled
+    token loop and with ``--loop``, at each of STATIC_TEMPS: gated equal
+    token for token, the same seed the same tokens with nothing new
+    built, another step count the same two programs, graphs and eager
+    equal, 252 MVM launches a forward and no attention kernel.  Returns
+    the launches of its first run."""
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import ServeEngine
+    first = None
+    gen = int(STATIC_ARGS[STATIC_ARGS.index("--gen") + 1])
+    for temp in STATIC_TEMPS:
+        args = STATIC_ARGS + ["--pum-mode", mode, "--temperature", str(temp)]
+        # the per-token loop first, and only its tokens kept: one model
+        # on the card at a time
+        registry.reset_launches()
+        loop = serve.main(args + ["--loop"])
+        torch.cuda.synchronize()
+        loop_launches = dict(registry.LAUNCHES)
+        loop_out, loop_s = loop["out"], loop["wall_s"]
+        del loop
+        gc.collect()
+        registry.reset_launches()
+        scan = serve.main(args)
+        torch.cuda.synchronize()
+        scan_launches = dict(registry.LAUNCHES)
+        if first is None:
+            first = scan_launches
+        eng, prompt = scan["engine"], scan["prompt"]
+        cfg = eng.cfg
+        progs = eng.scan_programs()
+        t0 = time.perf_counter()
+        again = eng.generate(prompt, gen, temperature=temp, seed=0)
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+        eager_eng = ServeEngine(cfg, eng.params, max_len=eng.max_len,
+                                device=eng.device, cuda_graphs=False)
+        t0 = time.perf_counter()
+        eager = eager_eng.generate(prompt, gen, temperature=temp, seed=0)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        other = eng.generate(prompt, gen, temperature=temp, seed=1)
+        half = eng.generate(prompt, gen // 2, temperature=temp, seed=0)
+        for launches in (scan_launches, loop_launches):
+            launch_gate(mode, cfg.num_layers, gen, 0, launches, paged=False)
+        gates = {
+            "scan equals the per-token loop": torch.equal(scan["out"],
+                                                          loop_out),
+            "the same seed gives the same tokens, nothing new built":
+                torch.equal(again, scan["out"])
+                and eng.scan_programs() == progs
+                and progs == {(4, 64, float(temp)): 1},
+            "another step count replays the same two programs": torch.equal(
+                half, scan["out"][:, :64 + gen // 2])
+                and eng.scan_programs() == progs
+                and eng.graphs_captured()[0] == 2,
+            "graphs and eager give the same tokens": torch.equal(
+                eager, scan["out"]),
+            "another seed gives other tokens only when sampling":
+                torch.equal(other, scan["out"]) == (temp == 0),
+        }
+        failed = [k for k, ok in gates.items() if not ok]
+        toks = scan["tokens"]
+        log(f"static {mode} t={temp}: batch 4 x 64 prompt tokens, {gen} "
+            f"tokens each; scan (build included) {scan['wall_s']:.3f} s = "
+            f"{toks / scan['wall_s']:.1f} tok/s, loop {loop_s:.3f} s = "
+            f"{toks / loop_s:.1f} tok/s; steady scan {steady_s:.3f} s = "
+            f"{toks / steady_s:.1f} tok/s ({1e3 * steady_s / gen:.3f} ms a "
+            f"token step), eager scan {eager_s:.3f} s; prefill and decode "
+            f"graphs ({sum(scan_launches.values())} kernel launches in the "
+            f"first run) built in {eng.graphs_captured()[1]:.2f} s; gates "
+            f"failed: {failed} on {smi}")
+        if failed:
+            raise AssertionError(f"static {mode} t={temp}: {failed}")
+        del scan, eng, eager_eng
+        gc.collect()
+    return first
+
+
+def contiguous_run(mode: str, smi: str) -> dict[str, int]:
+    """Phase 9 in one mode; returns the launches of its main paths (the
+    CLI's contiguous run and its first static batch)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import ContinuousBatchingScheduler
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    res = serve.main(CONTIG_ARGS + ["--pum-mode", mode])
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched = res["scheduler"]
+    cfg = sched.cfg
+    tokens = tokens_of(res["completions"])
+    if len(tokens) != 6 or any(len(t) != 16 for t in tokens.values()):
+        raise AssertionError(f"contiguous {mode}: completions {tokens}")
+    launch_gate(mode, cfg.num_layers, sched.decode_steps,
+                sched.prefill_chunks, launches, paged=False)
+    progs = sched.step_programs()
+    lengths = {len(r.prompt) for r in res["requests"]}
+    steady = timed_run(sched, res["requests"])
+    eager = timed_run(like(sched, cuda_graphs=False), res["requests"])
+    # paged == contiguous where both run the same arithmetic: the torch
+    # backend, monolithic prefill on both
+    plain_contig = like(sched, cuda_graphs=True, kernel_backend="torch")
+    plain_paged = ContinuousBatchingScheduler(
+        cfg, sched.params, num_slots=sched.num_slots, max_len=sched.max_len,
+        kv_block_size=16, chunked_prefill=False, kernel_backend="torch",
+        device=sched.device)
+    contig_t = tokens_of(plain_contig.run(res["requests"]))
+    paged_t = tokens_of(plain_paged.run(res["requests"]))
+    del plain_contig, plain_paged
+    # phase 4's paged scheduler on the cuda backend, for its tokens and
+    # its decode replay beside the contiguous one, in turns
+    paged = ContinuousBatchingScheduler(
+        cfg, sched.params, num_slots=sched.num_slots, max_len=sched.max_len,
+        kv_block_size=16, chunked_prefill=True, device=sched.device)
+    paged_cuda = tokens_of(paged.run(res["requests"]))
+    replay = {"paged": [], "contiguous": []}
+    for name in ("paged", "contiguous", "contiguous", "paged"):
+        replay[name].append(step_device_ms(
+            paged if name == "paged" else sched))
+    del paged
+    gates = {
+        "one decode program, one prefill program a prompt length, each a "
+        "graph": progs == {"decode": 1, "prefill": {n: 1 for n in lengths}}
+        and res["graphs"] == 1 + len(lengths),
+        "a second run builds nothing and gives the same tokens":
+            sched.step_programs() == progs and steady["tokens"] == tokens,
+        "graphs and eager give the same tokens and launches":
+            eager["tokens"] == tokens
+            and eager["launches"] == steady["launches"],
+        "contiguous equals paged on the torch backend (monolithic "
+        "prefill)": contig_t == paged_t,
+    }
+    for run in (steady, eager):
+        launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+                    run["launches"], paged=False)
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"contiguous {mode}: 6 requests x 16 tokens, {steady['steps']} decode "
+        f"steps + {steady['chunks']} prefills; launches {launches} (first "
+        f"run); programs {progs}; decode_ms_per_step graphs / eager "
+        f"{steady['decode_ms']:.3f} / {eager['decode_ms']:.3f}, tokens_per_s "
+        f"{steady['tokens_per_s']:.2f} / {eager['tokens_per_s']:.2f}, "
+        f"peak_mem_GB {steady['peak_gb']:.2f}; a decode replay, paged / "
+        f"contiguous / contiguous / paged: {replay['paged'][0]:.4f} / "
+        f"{replay['contiguous'][0]:.4f} / {replay['contiguous'][1]:.4f} / "
+        f"{replay['paged'][1]:.4f} ms; first tokens differing from the "
+        f"paged scheduler's on the cuda backend (K3) "
+        f"{first_difference(tokens, paged_cuda)}, from the torch backend's "
+        f"{first_difference(tokens, contig_t)}; "
+        f"gates failed: {failed} on {smi}")
+    if failed:
+        raise AssertionError(f"contiguous {mode}: {failed}")
+    reqs = [dataclasses.replace(r, temperature=t, seed=s) for r, t, s in
+            zip(res["requests"], SAMPLED_TEMPS, SAMPLED_SEEDS)]
+    contiguous_long(sched, reqs, mode, smi)
+    del res, sched, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in static_phase(mode, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def contiguous_phase(dev, gpu_name: str,
+                     smi: str) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 9; returns each kernel's launches on its main paths and K1's
+    and K2's rows at a prefill's M."""
+    check_chunked_attention(dev, smi)
+    rows = check_prefill_mvm(dev, gpu_name)
+    launches: dict[str, int] = {}
+    for mode in ("pum", "int8"):
+        for k, v in contiguous_run(mode, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, rows
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -1542,7 +1989,8 @@ OFF_MAIN_PATH = {"gf2_mvm"}
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["kernels", "cnn"], default=None)
+    ap.add_argument("--only", choices=["kernels", "cnn", "contiguous"],
+                    default=None)
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -1582,6 +2030,13 @@ def main(argv=None) -> int:
             "cnn_shapes": cnn_rows}}}))
         return 0
 
+    if args.only == "contiguous":
+        contig_launches, prefill_rows = contiguous_phase(dev, gpu_name, smi)
+        log(json.dumps({"kernels": {"launches": contig_launches,
+                                    "prefill_shape": prefill_rows}}))
+        log(f"phase 9 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     # -- 3. kernels
     rows = check_mvm(dev, gpu_name)
     rows["paged_attention"] = check_attention(dev, gpu_name)
@@ -1604,6 +2059,12 @@ def main(argv=None) -> int:
     for k, v in sampled_phase(greedy, smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 8 done at {time.perf_counter() - start:.1f} s")
+    contig_launches, prefill_rows = contiguous_phase(dev, gpu_name, smi)
+    for k, v in contig_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for name, row in prefill_rows.items():
+        rows[name]["prefill_shape"] = row
+    log(f"phase 9 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -7,19 +7,25 @@ never route through the PUM path — only the Q/K/V/O projections do.
 The paged branch runs the ``paged_attention`` kernel on CUDA tensors
 for chunks of up to ``_KERNEL_MAX_S`` tokens, and the composition below
 otherwise; the composition updates the pools in place, as the kernel
-does.  Online-softmax (chunked) attention for prompts over
-``2 * CHUNK_Q`` tokens and cross-attention are not ported yet.
+does.  The contiguous cache and the cache-free branch attend through
+the plain composition, and a prompt of more than ``2 * CHUNK_Q`` tokens
+at once through :func:`_chunked_attention`, the reference's online
+softmax (plain PyTorch, as the reference's is XLA code); the paged
+branch refuses such a prompt, as the reference's does: chunked prefill
+streams it.  Cross-attention is not ported yet.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import registry
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.kernels.paged_attention.ref import (causal_mask,
+from repro_torch.kernels.paged_attention.ref import (NEG_INF, causal_mask,
                                                      gather_rows,
                                                      paged_write_cells,
                                                      plain_attention)
@@ -28,7 +34,10 @@ from repro_torch.models import layers
 
 Params = dict[str, Any]
 
+# the online softmax's query and key blocks; read when it is called, so
+# a test can shrink them
 CHUNK_Q = 1024
+CHUNK_K = 1024
 
 # The kernel keeps one f32 score row per query in shared memory; decode
 # (S=1) and chunk-prefill steps qualify, longer monolithic prefills stay
@@ -124,10 +133,6 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     pum = cfg.pum
     if pum.ibert:
         raise NotImplementedError("I-BERT integer softmax is not ported")
-    if s > 2 * CHUNK_Q:
-        raise NotImplementedError(
-            f"{s} tokens at once need the online-softmax path, not ported "
-            f"yet; stream the prompt in chunks (chunked prefill)")
 
     q = layers.linear(p["wq"], x, pum).reshape(b, s, kvh, g, hd)
     k = layers.linear(p["wk"], x, pum).reshape(b, s, kvh, hd)
@@ -146,6 +151,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                              "must be [B]")
         if block_table is None:
             raise ValueError("paged attention requires a block_table")
+        # the paged path reduces with plain softmax over a [B,S,T] score
+        # tensor: longer prompts stream through chunked prefill
+        if s > 2 * CHUNK_Q:
+            raise ValueError(
+                f"paged prefill chunk of {s} tokens exceeds "
+                f"{2 * CHUNK_Q}; enable chunked_prefill to stream long "
+                f"prompts")
         backend = registry.resolve_backend(x, kernel=pa_ops.NAME)
         if backend == KernelBackend.CUDA and s <= _KERNEL_MAX_S:
             _, _, out = pa_ops.paged_attention(
@@ -165,13 +177,24 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         _write_contiguous(cache["k"], k, cache_index)
         _write_contiguous(cache["v"], v, cache_index)
         t = cache["k"].shape[1]
-        kpos = torch.arange(t, device=x.device)
-        if cache_index.ndim == 1:
-            mask = causal_mask(cache_index, s, t)
+        if s > 2 * CHUNK_Q:
+            # a long prefill into the cache is one request's: a scalar
+            # offset
+            if cache_index.ndim:
+                raise ValueError("chunked prefill expects a scalar "
+                                 "cache_index")
+            out = _chunked_attention(q, cache["k"], cache["v"],
+                                     cache_index, softcap)
+        elif cache_index.ndim == 1:
+            out = plain_attention(q, cache["k"], cache["v"],
+                                  causal_mask(cache_index, s, t), softcap)
         else:
+            kpos = torch.arange(t, device=x.device)
             mask = kpos[None, :] <= (cache_index + torch.arange(
                 s, device=x.device))[:, None]
-        out = plain_attention(q, cache["k"], cache["v"], mask, softcap)
+            out = plain_attention(q, cache["k"], cache["v"], mask, softcap)
+    elif s > 2 * CHUNK_Q:
+        out = _chunked_attention(q, k, v, 0, softcap)
     else:
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                      device=x.device))
@@ -179,6 +202,60 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     out = out.to(x.dtype).reshape(b, s, cfg.num_heads * hd)
     return layers.linear(p["wo"], out, pum), cache
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_offset: torch.Tensor | int, softcap: float
+                       ) -> torch.Tensor:
+    """Causal online-softmax attention, the reference's block for block:
+    score memory of one [CHUNK_Q, CHUNK_K] block instead of [S, T].
+
+    q: [B,S,KV,G,hd], the queries at positions ``q_offset + [0, S)``
+    (``q_offset`` a scalar); k/v: [B,T,KV,hd].  Queries and keys are
+    zero-padded to whole blocks, and padded keys masked.  Each query
+    block walks the key blocks in order with a running max, sum and
+    accumulator in f32; scores are taken in f32, softcapped, then
+    masked, and p is cast to V's dtype before p @ V.  Returns
+    [B,S,KV,G,hd] f32: ``acc / max(l, 1e-30)``."""
+    cq, ck = CHUNK_Q, CHUNK_K
+    b, s, kvh, g, hd = q.shape
+    t = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = -(-s // cq), -(-t // ck)
+    q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * cq - s)).to(torch.float32)
+    k = F.pad(k, (0, 0, 0, 0, 0, nk * ck - t)).to(torch.float32)
+    v = F.pad(v, (0, 0, 0, 0, 0, nk * ck - t))
+    dev = q.device
+    q_base = torch.arange(cq, device=dev)
+    k_base = torch.arange(ck, device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * cq:(qi + 1) * cq]
+        qpos = q_offset + qi * cq + q_base
+        m = torch.full((b, kvh, g, cq), NEG_INF, device=dev)
+        lsum = torch.zeros((b, kvh, g, cq), device=dev)
+        acc = torch.zeros((b, kvh, g, cq, hd), device=dev)
+        for ki in range(nk):
+            kblk = k[:, ki * ck:(ki + 1) * ck]
+            vblk = v[:, ki * ck:(ki + 1) * ck]
+            sc = torch.einsum("bqkgd,btkd->bkgqt", qblk, kblk) * scale
+            if softcap > 0:
+                sc = torch.tanh(sc / softcap) * softcap
+            kpos = ki * ck + k_base
+            keep = (qpos[:, None] >= kpos[None, :]) & (kpos < t)[None, :]
+            sc = torch.where(keep, sc, neg)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            lsum = lsum * corr + torch.sum(p, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p.to(vblk.dtype), vblk
+            ).to(torch.float32)
+            m = m_new
+        out = acc / torch.clamp_min(lsum[..., None], 1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))        # [B, CQ, KV, G, hd]
+    return torch.cat(outs, dim=1)[:, :s]
 
 
 def apply_rope_gqa(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor

@@ -28,6 +28,7 @@ returns quietly to eager dispatch.
 from __future__ import annotations
 
 import collections
+import gc
 import math
 import time
 from collections.abc import Callable, Sequence
@@ -49,11 +50,22 @@ class CompiledStep:
     ``stream`` (outside capture the kernels' libraries load, their launch
     plans are cached and their shared-memory attributes are set), then
     captures it into a CUDA graph whose allocations come from ``pool``.
-    The inputs are zero for both: every block-table row is the trash
-    block and no slot is active, so no live KV cell moves.  The launches
-    counted during capture are kept with the graph (``launches``) and
-    added to ``registry.LAUNCHES`` at each replay; the warm-up's count
-    nowhere.
+    Both run on the staged inputs, zeros until the first :meth:`stage`.
+    The launches counted during capture are kept with the graph
+    (``launches``) and added to ``registry.LAUNCHES`` at each replay; the
+    warm-up's count nowhere.
+
+    Every step must be idempotent on its inputs, because the warm-up
+    runs it once on the first call's inputs and the replay that follows
+    runs it again: two runs on the same inputs must leave the same state
+    as one.  A serving step holds to this by writing only the cells of
+    its inputs' rows and positions, with values its inputs fix (zero
+    inputs write only the paged pool's trash block), and by returning
+    what it advances (a token, a key, a cache index) rather than
+    updating its own inputs; :meth:`stage_from` hands those outputs to
+    the next call.  A step that counts or accumulates in place (a
+    refcount, a rollback) breaks this rule and would apply twice.
+    ``tests/test_torch_cuda.py`` holds each step kind to it.
     """
 
     def __init__(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
@@ -86,15 +98,23 @@ class CompiledStep:
             return
         t0 = time.perf_counter()
         side, cur = self._stream, torch.cuda.current_stream(self.device)
-        self._buf.zero_()
         side.wait_stream(cur)
         with torch.cuda.stream(side), registry.recording():
             self.fn(*self.inputs)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with registry.recording() as counts, \
-                torch.cuda.graph(graph, pool=self._pool, stream=side):
-            self._ints, *aux = self.fn(*self.inputs)
+        # no finalizer may run inside the capture: a dead object of an
+        # earlier scheduler (a graph, a pinned staging buffer) collected
+        # there may make CUDA calls that invalidate the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with registry.recording() as counts, \
+                    torch.cuda.graph(graph, pool=self._pool, stream=side):
+                self._ints, *aux = self.fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         self.aux = tuple(aux)
         self.graph = graph
         self.launches = counts
@@ -107,6 +127,18 @@ class CompiledStep:
         for sl, v in zip(self._slices, values):
             self._host[sl] = np.asarray(v).reshape(-1)
         self._buf.copy_(self._staging, non_blocking=True)
+
+    @torch.inference_mode()
+    def stage_from(self, values: torch.Tensor) -> None:
+        """Fill the inputs from a tensor on the device, packed as they
+        are (another step's :attr:`ints`): one device copy, nothing on
+        the host."""
+        self._buf.copy_(values)
+
+    @property
+    def ints(self) -> torch.Tensor:
+        """The last call's integer outputs, on the device."""
+        return self._ints
 
     @torch.inference_mode()
     def launch(self) -> None:

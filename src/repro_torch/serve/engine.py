@@ -1,10 +1,18 @@
-"""Serving engine: prefill + per-token decode over a contiguous KV cache.
+"""Serving engine: prefill + decode over a contiguous KV cache.
 
-``ServeEngine.generate_loop`` (one decode step per token) is the port's
-solo oracle: the continuous-batching scheduler must reproduce each
-request's tokens exactly as if it ran alone through it.  The engine
-prepacks ``int8``/``pum`` weights at construction, so serving pays
-quantisation and slicing once, at load.
+``ServeEngine.generate`` runs a static batch as two compiled programs
+(``serve.compiled``), on the card two CUDA graphs, built once per batch,
+prompt length and temperature: prefill with the first draw, and one
+decode step that is replayed ``steps - 1`` times, its token, key and
+cache index handed from one replay to the next on the device.  This is
+the port's counterpart of the reference's one jitted ``lax.scan`` over
+the decode steps, whose loop body compiles once whatever the count.
+``ServeEngine.generate_loop`` (one decode step per token, dispatched
+from Python) is the oracle of both: ``generate`` must give its tokens,
+and the continuous-batching scheduler each request's tokens exactly as
+if it ran alone through it.  The engine prepacks ``int8``/``pum``
+weights at construction, so serving pays quantisation and slicing
+once, at load.
 
 Sampling follows the reference: greedy at temperature <= 0, else a
 Gumbel-max draw from a threefry key (``serve.prng``), keyed by the
@@ -14,8 +22,10 @@ draws the reference's tokens.
 from __future__ import annotations
 
 import contextlib
+from collections.abc import Callable, Sequence
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
@@ -23,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import registry
 from repro_torch.models import lm
 from repro_torch.serve import prng
+from repro_torch.serve.compiled import CompiledStep
 
 
 class RequestTooLarge(ValueError):
@@ -83,18 +94,25 @@ def sample_token(logits: torch.Tensor, key: torch.Tensor | None = None,
 
 
 class ServeEngine:
-    """Prefill + per-token decode for a batch of equal-length prompts.
+    """Prefill + decode for a batch of equal-length prompts.
 
     ``prepack`` (default: on for int8/pum) packs float weights at
     construction; already packed params pass through.
     ``kernel_backend`` (``"cuda"``/``"torch"``/None) is made ambient for
-    every step; None selects by device.
+    every step; None selects by device.  ``use_scan`` is ``generate``'s
+    default: the compiled token loop, or ``generate_loop``.
+    ``cuda_graphs`` (on the card only) runs every compiled program, the
+    engine's and its scheduler's, as the replay of its CUDA graph; False
+    dispatches their ops from Python, as on the CPU.  The graphs replay
+    one after another, never at once: one memory pool and one capture
+    stream serve them all.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict[str, Any],
                  max_len: int = 128, prepack: bool | None = None,
                  kernel_backend: registry.KernelBackend | str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 use_scan: bool = True, cuda_graphs: bool = True):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -107,7 +125,31 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
+        self.use_scan = use_scan
         self._decode = make_decode_step(cfg)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        if self.cuda_graphs:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        else:
+            self._graph_pool = self._capture_stream = None
+        # (batch, prompt length, temperature) -> generate's prefill and
+        # decode programs and the window they write
+        self._scans: dict[tuple, tuple[CompiledStep, CompiledStep,
+                                       list[dict]]] = {}
+
+    def compile_step(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
+                     *values) -> CompiledStep:
+        """``fn`` built as a :class:`CompiledStep` on the engine's device,
+        graph pool and capture stream, warmed up on ``values`` (zeros if
+        none are given)."""
+        prog = CompiledStep(fn, shapes, self.device, graphs=self.cuda_graphs,
+                            pool=self._graph_pool,
+                            stream=self._capture_stream)
+        if values:
+            prog.stage(*values)
+        prog.build()
+        return prog
 
     @contextlib.contextmanager
     def backend_ctx(self):
@@ -142,6 +184,99 @@ class ServeEngine:
                ) -> tuple[torch.Tensor, list[dict]]:
         with self.backend_ctx():
             return self._decode(self.params, states, token, index)
+
+    def _scan_programs(self, b: int, s: int, temperature: float
+                       ) -> tuple[CompiledStep, CompiledStep, list[dict]]:
+        """``generate``'s programs at one shape, both unbuilt, and the
+        contiguous window of their own that they write:
+
+        * prefill: (prompt [B,S], key [2]) -> token 0 drawn with ``key``,
+          the key and the cache index ``s``;
+        * decode: (token [B,1], key [2], cache index []) -> the next
+          token, drawn with the key folded with ``index - s``, that key
+          and ``index + 1``.
+
+        Both return their outputs packed as the decode step's inputs, so
+        a replay's outputs are the next replay's inputs: the schedule of
+        ``generate_loop``, op for op.  Prefill zeroes the window first,
+        so each program writes only what its inputs fix."""
+        cfg, params, dev = self.cfg, self.params, self.device
+        states = lm.init_state(cfg, b, self.max_len, dev)
+
+        def pack(tok, key, index):
+            return (torch.cat([tok.reshape(-1), key,
+                               index.reshape(1).to(torch.int32)]),)
+
+        def prefill(prompt, key):
+            with self.backend_ctx():
+                for cache in states:
+                    for t in cache.values():
+                        t.zero_()
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                logits, _ = lm.forward(params, prompt, cfg, states=states,
+                                       cache_index=zero, last_only=True)
+                tok = sample_token(logits, key, temperature)
+            return pack(tok, key, zero + s)
+
+        def decode(tok, key, index):
+            with self.backend_ctx():
+                key = prng.fold_in(key, index - s)
+                logits, _ = self._decode(params, states, tok, index)
+                tok = sample_token(logits, key, temperature)
+            return pack(tok, key, index + 1)
+
+        graphs = dict(device=dev, graphs=self.cuda_graphs,
+                      pool=self._graph_pool, stream=self._capture_stream)
+        return (CompiledStep(prefill, [(b, s), (2,)], **graphs),
+                CompiledStep(decode, [(b, 1), (2,), ()], **graphs), states)
+
+    @torch.inference_mode()
+    def generate(self, prompt: torch.Tensor, steps: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 use_scan: bool | None = None) -> torch.Tensor:
+        """prompt: [B, S] -> [B, S + steps], the tokens of
+        ``generate_loop`` from the compiled prefill and decode step
+        (``use_scan``, the engine's default), or ``generate_loop``
+        itself.  The decode step replays with no value going to the
+        host; the tokens come back in one copy at the end."""
+        if use_scan is None:
+            use_scan = self.use_scan
+        if not use_scan:
+            return self.generate_loop(prompt, steps, temperature, seed)
+        if steps <= 0:
+            return prompt
+        b, s = prompt.shape
+        self.check_window(s, steps)
+        shape = (b, s, float(temperature))
+        if shape not in self._scans:
+            self._scans[shape] = self._scan_programs(*shape)
+        prefill, decode, _ = self._scans[shape]
+        prefill.stage(prompt.cpu().numpy().astype(np.int32),
+                      prng.prng_key(seed).numpy())
+        prefill.build()
+        prefill.launch()
+        decode.stage_from(prefill.ints)
+        decode.build()
+        toks = [prefill.ints[:b].clone()]
+        for _ in range(steps - 1):
+            decode.launch()
+            decode.stage_from(decode.ints)
+            toks.append(decode.ints[:b].clone())
+        return torch.cat([prompt.to(self.device, torch.int32),
+                          torch.stack(toks, dim=1)], dim=1)
+
+    def scan_programs(self) -> dict[tuple, int]:
+        """How many times ``generate``'s programs were built, by (batch,
+        prompt length, temperature): once each, whatever the step
+        count, as the reference's scan body compiles once."""
+        return {shape: 1 for shape in self._scans}
+
+    def graphs_captured(self) -> tuple[int, float]:
+        """(CUDA graphs of ``generate`` captured, seconds spent building
+        them)."""
+        progs = [p for *pair, _ in self._scans.values() for p in pair
+                 if p.graph is not None]
+        return len(progs), sum(p.build_seconds for p in progs)
 
     @torch.inference_mode()
     def generate_loop(self, prompt: torch.Tensor, steps: int,

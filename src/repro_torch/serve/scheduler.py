@@ -1,53 +1,67 @@
-"""Continuous-batching serve scheduler over the paged KV pool.
+"""Continuous-batching serve scheduler: paged KV pool or contiguous
+windows.
 
 A fixed pool of ``num_slots`` decode slots shares one prepacked
-parameter set and one paged KV pool per layer (``serve.kv_pool``).  Each
-scheduler iteration (:meth:`ContinuousBatchingScheduler.tick`):
+parameter set and the KV storage of every layer, in one of the
+reference's two layouts:
 
-  * feeds every mid-prefill slot one chunk of its prompt (``kv_block_size``
-    tokens with ``chunked_prefill``, else the whole prompt) through a
-    batch-1 step that writes K/V straight into the pool through the
-    slot's block-table row; the slot whose last chunk lands samples its
-    first token (inside the chunk step, from ``prng_key(seed)``) and
-    joins decode;
-  * runs ONE slot-wise decode step over all slots: a per-slot
-    ``cache_index`` vector, an active mask, and a block table masked so
-    that rows not decoding write to the trash block.  Every row folds its
-    key with ``gen - 1`` and draws at its own temperature; rows at
-    temperature 0 take the argmax.  Greedy and sampled rows share the
-    one step: there is no second decode program.
+* **paged** (``kv_block_size > 0``): one pool of KV blocks per layer
+  (``serve.kv_pool``).  Admission claims a free slot and the request's
+  blocks up front (FIFO; a request the pool cannot fund yet waits),
+  retirement releases them.  Each iteration
+  (:meth:`ContinuousBatchingScheduler.tick`) feeds every mid-prefill slot
+  one chunk of its prompt (``kv_block_size`` tokens with
+  ``chunked_prefill``, else the whole prompt) through a batch-1 step
+  that writes K/V straight into the pool through the slot's block-table
+  row; the slot whose last chunk lands draws its first token (inside
+  the chunk step, from ``prng_key(seed)``) and joins decode.
+* **contiguous** (``kv_block_size = 0``, the reference's default): a
+  ``[num_slots, max_len]`` window per layer.  Admission prefills the
+  whole prompt at once, batch 1, into a window of the scheduler's own,
+  draws token 0 and splices that window into the slot's row: the
+  prompt's K/V, then zeros up to ``max_len``.  A request that finishes
+  at its first token (EOS, or ``max_tokens == 1``) completes at
+  admission and leaves the slot free.
 
-Both steps are compiled (``serve.compiled``): on the card the decode
-step is the replay of one CUDA graph, and each chunk the replay of one
-graph per distinct chunk length (the block size plus ragged tails), each
-built once for the scheduler's lifetime, as the reference jits
-``make_slot_step`` once and its chunk prefill once per chunk length.
+Then ONE slot-wise decode step runs over all slots: a per-slot
+``cache_index`` vector and an active mask (paged: and a block table
+masked so that rows not decoding write to the trash block; contiguous:
+every row writes at its own index, the free rows into windows the next
+admission overwrites).  Every row folds its key with ``gen - 1`` and
+draws at its own temperature; rows at temperature 0 take the argmax.
+Greedy and sampled rows share the one step: there is no second decode
+program.
+
+The steps are compiled (``serve.compiled``): on the card the decode
+step is the replay of one CUDA graph, and each chunk (paged) or each
+admission's prefill (contiguous) the replay of one graph per distinct
+chunk or prompt length, the slot an input of the step; each is built
+once for the scheduler's lifetime, as the reference jits
+``make_slot_step`` once and its prefill once per length.
 :meth:`ContinuousBatchingScheduler.step_programs` counts the builds.
 
-Admission claims a free slot and the request's blocks up front (FIFO; a
-request the pool cannot fund yet waits), retirement releases them.
-
 Oracle equivalence: each request's tokens equal those of the request
-run alone through ``ServeEngine.generate_loop`` — activation scales are
-per input row and the gathered paged view is cropped to the engine
-window, so a row's numerics never depend on its co-tenants.  That holds
-bit for bit wherever both run the same arithmetic: on the CPU, and on
-the card's ``torch`` backend.  On the ``cuda`` backend the paged steps
-attend through the paged-attention kernel, which sums in another order
-than the solo loop's plain attention over its contiguous cache, so the
-two can part at near-ties; a request served alone through the
-scheduler still gives its tokens in any batch.
+run alone through ``ServeEngine.generate_loop``: activation scales are
+per input row, and every row attends over the engine's whole window
+(the paged view is cropped to it), so a row's numerics never depend on
+its co-tenants.  The contiguous steps attend through the solo loop's
+own composition, so there it holds bit for bit on every backend, the
+card's ``cuda`` backend too.  The paged steps hold it wherever both run
+the same arithmetic: on the CPU, and on the card's ``torch`` backend.
+On the ``cuda`` backend they attend through the paged-attention
+kernel, which sums in another order than the solo loop's plain
+attention, so the two can part at near-ties; a request served alone
+through the scheduler still gives its tokens in any batch.
 
 This slice serves the dense family at any temperature, each request
 with its own seed, and its draws are the reference's (``serve.prng``
-reproduces its threefry keys).  The contiguous scheduler, prefix
-caching, speculative decoding, tensor parallelism and fault-injection
-hooks of the JAX package are not ported yet; their arguments raise
-``NotImplementedError``.
+reproduces its threefry keys).  Prefix caching, speculative decoding,
+tensor parallelism and fault-injection hooks of the JAX package are not
+ported yet; their arguments raise ``NotImplementedError`` (or, with the
+contiguous layout, the reference's ``ValueError``).
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
 from collections import deque
@@ -125,27 +139,32 @@ def _mask_block_table(block_table: torch.Tensor, active: torch.Tensor
     return block_table * active.to(block_table.dtype)[:, None]
 
 
-def make_slot_step(cfg: ModelConfig, kv_len: int):
-    """The one-dispatch-per-token core over the paged pool.
+def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
+    """The one-dispatch-per-token core.
 
     (params, states, cur_tok [B,1], cache_index [B], keys [B,2],
-     active [B] bool, temp [B] f32, eos [B], gen [B], max_toks [B],
-     block_table [B,W])
+     active [B] bool, temp [B] f32, eos [B], gen [B], max_toks [B]
+     [, block_table [B,W]])
       -> (states, tok [B], cache_index', step_keys [B,2], active', gen',
           done [B], logits [B,1,V])
 
-    Every slot runs; ``active`` masks rows out of the counters and, via
-    the masked block table, out of the pool.  Each row's key is folded
+    Every slot runs; ``active`` masks rows out of the counters.  With
+    ``kv_len`` (the engine window) the states are the paged pool and the
+    step takes a block table, which it masks so that rows not decoding
+    write to the trash block; without, they are the contiguous windows,
+    where every row writes at its own index.  Each row's key is folded
     with its local step number (``gen - 1``, which wraps to 0xFFFFFFFF
     for an empty slot), as ``generate_loop`` folds with ``i``, and the
     folded keys come back for the host to keep.  The logits ride along
     for the compiled step, which keeps them on the device."""
     decode = make_decode_step(cfg, kv_len=kv_len)
+    paged = kv_len is not None
 
     def slot_step(params, states, cur_tok, cache_index, keys, active, temp,
-                  eos, gen, max_toks, block_table):
+                  eos, gen, max_toks, block_table=None):
         step_keys = prng.fold_in(keys, gen - 1)
-        block_table = _mask_block_table(block_table, active)
+        if paged:
+            block_table = _mask_block_table(block_table, active)
         logits, states = decode(params, states, cur_tok, cache_index,
                                 block_table=block_table,
                                 write_table=block_table)
@@ -161,15 +180,15 @@ def make_slot_step(cfg: ModelConfig, kv_len: int):
 
 
 class ContinuousBatchingScheduler:
-    """Continuous batching over a fixed pool of decode slots, paged KV,
-    serving requests at any temperature: each slot carries its request's
-    key and temperature, and greedy and sampled rows run in the one
-    decode step.
+    """Continuous batching over a fixed pool of decode slots, serving
+    requests at any temperature: each slot carries its request's key and
+    temperature, and greedy and sampled rows run in the one decode step.
 
-    ``kv_block_size`` tokens per KV block; ``num_kv_blocks`` sizes the
-    pool (default: ``num_slots * ceil(max_len / kv_block_size)``);
-    ``chunked_prefill`` streams prompts in block-size chunks between
-    decode steps.  ``kernel_backend`` (``"cuda"``/``"torch"``/None) is
+    ``kv_block_size`` tokens per KV block (0: contiguous windows of
+    ``max_len``); ``num_kv_blocks`` sizes the pool (default:
+    ``num_slots * ceil(max_len / kv_block_size)``); ``chunked_prefill``
+    streams prompts in block-size chunks between decode steps (paged
+    only).  ``kernel_backend`` (``"cuda"``/``"torch"``/None) is
     ambient for every step; None selects by device.  It is read when a
     step is built, as the reference reads it when a step is traced.
 
@@ -186,58 +205,72 @@ class ContinuousBatchingScheduler:
                  device: str | torch.device = "cuda",
                  prefix_cache: bool = False, speculate_k: int = 0,
                  mesh=None, cuda_graphs: bool = True):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if chunked_prefill and kv_block_size <= 0:
+            raise ValueError(
+                "chunked_prefill streams prompts through the paged pool; "
+                "set kv_block_size > 0 to enable it")
+        if prefix_cache and kv_block_size <= 0:
+            raise ValueError(
+                "prefix_cache shares paged pool blocks between requests; "
+                "set kv_block_size > 0 to enable it")
+        if speculate_k > 0 and kv_block_size <= 0:
+            raise ValueError(
+                "speculative decoding rolls rejected draft KV writes "
+                "back through the paged pool; set kv_block_size > 0 to "
+                "enable it")
         if prefix_cache or speculate_k or mesh is not None:
             raise NotImplementedError(
                 "prefix caching, speculative decoding and tensor-parallel "
                 "serving are not ported yet")
-        if kv_block_size <= 0:
-            raise NotImplementedError(
-                "the contiguous-window scheduler is not ported yet; set "
-                "kv_block_size > 0 for the paged pool")
-        if num_slots < 1:
-            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.engine = ServeEngine(cfg, params, max_len=max_len,
                                   prepack=prepack,
                                   kernel_backend=kernel_backend,
-                                  device=device)
+                                  device=device, cuda_graphs=cuda_graphs)
         self.cfg = cfg
         self.params = self.engine.params
         self.device = self.engine.device
         self.num_slots = num_slots
         self.max_len = max_len
-        self.block_size = kv_block_size
+        self.paged = kv_block_size > 0
         self.chunked_prefill = chunked_prefill
-        self.table_width = kv_pool.table_width(max_len, kv_block_size)
-        self.num_kv_blocks = num_kv_blocks or num_slots * self.table_width
-        self.states = lm.init_paged_state(
-            cfg, num_slots, max_len, num_blocks=self.num_kv_blocks,
-            block_size=kv_block_size, device=self.device)
-        self._step = make_slot_step(cfg, kv_len=max_len)
-        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
-        if self.cuda_graphs:
-            # the graphs replay one after another, never at once: one
-            # memory pool and one capture stream serve them all
-            self._graph_pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
+        if self.paged:
+            self.block_size = kv_block_size
+            self.table_width = kv_pool.table_width(max_len, kv_block_size)
+            self.num_kv_blocks = (num_kv_blocks
+                                  or num_slots * self.table_width)
+            self.states = lm.init_paged_state(
+                cfg, num_slots, max_len, num_blocks=self.num_kv_blocks,
+                block_size=kv_block_size, device=self.device)
+            self._one: list[dict] = []
         else:
-            self._graph_pool = self._capture_stream = None
-        # "decode", or a chunk length -> its step, and how many times
-        # each was built (lifetime: a reset keeps them)
+            self.block_size = self.table_width = self.num_kv_blocks = 0
+            self.states = lm.init_state(cfg, num_slots, max_len,
+                                        device=self.device)
+            # the admission prefill's own batch-1 window, spliced into
+            # the slot's row
+            self._one = lm.init_state(cfg, 1, max_len, device=self.device)
+        self._step = make_slot_step(cfg,
+                                    kv_len=max_len if self.paged else None)
+        self.cuda_graphs = self.engine.cuda_graphs
+        # "decode", or a chunk or prompt length -> its step, built once
+        # (lifetime: a reset keeps them)
         self._programs: dict[str | int, CompiledStep] = {}
-        self._builds: collections.Counter[str | int] = collections.Counter()
         self._reset()
 
     def _reset(self) -> None:
         b = self.num_slots
-        # the captured graphs hold the pools' addresses, so the pools
-        # are zeroed in place, never reallocated: every graph stays valid
-        # across a reset and none replays against freed memory
-        for st in self.states:
+        # the captured graphs hold the pools' and windows' addresses, so
+        # they are zeroed in place, never reallocated: every graph stays
+        # valid across a reset and none replays against freed memory
+        for st in self.states + self._one:
             for t in st.values():
                 t.zero_()
-        self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
-        self._block_table = np.zeros((b, self.table_width), np.int32)
-        self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
+        if self.paged:
+            self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
+            self._block_table = np.zeros((b, self.table_width), np.int32)
+            self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
         self._prefills: dict[int, _PrefillJob] = {}
         self._cur_tok = np.zeros((b, 1), np.int32)
         self._cache_index = np.zeros((b,), np.int32)
@@ -252,7 +285,8 @@ class ContinuousBatchingScheduler:
         self._slot_toks: list[list[int]] = [[] for _ in range(b)]
         self._slot_admitted = np.zeros((b,), np.int64)
         self._events: list[tuple[int, int, int]] = []
-        # lifetime dispatch counters and the host time spent in decode
+        # lifetime dispatch counters (a contiguous admission's prefill
+        # counts as one chunk) and the host time spent in decode
         # dispatches (each ends in a device-to-host copy, which waits
         # for the step to finish)
         self.decode_steps = 0
@@ -272,6 +306,8 @@ class ContinuousBatchingScheduler:
             raise InvalidRequest(f"request {req.rid}: max_tokens must be "
                                  f">= 1, got {req.max_tokens}")
         self.engine.check_window(len(req.prompt), req.max_tokens)
+        if not self.paged:
+            return
         need = self._blocks_for(req)
         if need > self.num_kv_blocks:
             raise RequestTooLarge(
@@ -285,17 +321,24 @@ class ContinuousBatchingScheduler:
         return None
 
     def can_fund(self, req: Request) -> bool:
-        return (self._free_slot() is not None
-                and self._alloc.can_alloc(self._blocks_for(req)))
+        """A free slot and, paged, enough free blocks right now."""
+        if self._free_slot() is None:
+            return False
+        return not self.paged or self._alloc.can_alloc(self._blocks_for(req))
 
-    def start_request(self, req: Request, step: int = 0) -> None:
-        """Admit one request: claim a free slot and its KV blocks; its
-        prompt is fed by the following ticks."""
+    def start_request(self, req: Request, step: int = 0
+                      ) -> Completion | None:
+        """Admit one request into a free slot.  Paged: claim its KV
+        blocks; its prompt is fed by the following ticks.  Contiguous:
+        prefill it now; returns its :class:`Completion` if it finished at
+        its first token, else None."""
         self.validate_request(req)
         slot = self._free_slot()
         if slot is None:
             raise PoolExhausted(f"request {req.rid}: all {self.num_slots} "
                                 f"decode slots are occupied")
+        if not self.paged:
+            return self._admit(slot, req, step)
         ids = self._alloc.alloc(self._blocks_for(req))
         if ids is None:
             raise PoolExhausted(
@@ -309,54 +352,129 @@ class ContinuousBatchingScheduler:
         self._slot_req[slot] = req
         self._slot_toks[slot] = []
         self._slot_admitted[slot] = step
+        return None
+
+    def _admit(self, slot: int, req: Request, step: int
+               ) -> Completion | None:
+        """Contiguous admission: one program prefills the prompt, draws
+        token 0 with ``prng_key(seed)`` at the request's temperature and
+        splices the window into ``slot``'s row.  A request that finished
+        at token 0 completes here and leaves the slot free (its row is
+        written all the same; the next admission overwrites it)."""
+        prompt = [int(t) for t in req.prompt]
+        key = prng.prng_key(req.seed).numpy()
+        temp = np.float32(req.temperature)
+        tok0 = int(self._dispatch(len(prompt), [prompt], slot, key,
+                                  temp.view(np.int32))[0, 0])
+        self.prefill_chunks += 1
+        if tok0 == req.eos_id or req.max_tokens == 1:
+            reason = "eos" if tok0 == req.eos_id else "length"
+            return Completion(req.rid, prompt, [tok0], reason, step, step)
+        self._slot_req[slot] = req
+        self._slot_admitted[slot] = step
+        self._start_decode(slot, req, tok0, key, temp, len(prompt))
+        return None
+
+    def _start_decode(self, slot: int, req: Request, tok0: int,
+                      key: np.ndarray, temp: np.float32, depth: int) -> None:
+        """``slot`` joins decode after its prompt of ``depth`` tokens and
+        its first token ``tok0``."""
+        self._cur_tok[slot, 0] = tok0
+        self._cache_index[slot] = depth
+        self._keys[slot] = key
+        self._temp[slot] = temp
+        self._active[slot] = True
+        self._eos[slot] = req.eos_id if req.eos_id >= 0 else -1
+        self._gen[slot] = 1
+        self._max_toks[slot] = req.max_tokens
+        self._slot_toks[slot] = [tok0]
+        self._events.append((req.rid, 0, tok0))
 
     def _retire(self, slot: int) -> None:
-        self._alloc.release(self._slot_blocks[slot])
-        self._slot_blocks[slot] = []
-        self._block_table[slot, :] = 0
+        if self.paged:
+            self._alloc.release(self._slot_blocks[slot])
+            self._slot_blocks[slot] = []
+            self._block_table[slot, :] = 0
         self._slot_req[slot] = None
         self._slot_toks[slot] = []
 
     # -- the steps ---------------------------------------------------------
 
-    def program(self, key: str | int) -> CompiledStep:
-        """The compiled step of ``key`` ("decode", or a chunk length),
-        built at its first use."""
+    def program(self, key: str | int, *values) -> CompiledStep:
+        """The compiled step of ``key`` ("decode", or a chunk or prompt
+        length), built at its first use and warmed up on ``values``, its
+        first call's inputs.  A contiguous step writes the rows its
+        inputs name, so it is built on real inputs: zeros would write
+        position 0 of every row."""
         prog = self._programs.get(key)
         if prog is None:
-            fn, shapes = (self._decode_fn() if key == "decode"
-                          else self._chunk_fn(key))
-            prog = CompiledStep(fn, shapes, self.device,
-                                graphs=self.cuda_graphs,
-                                pool=self._graph_pool,
-                                stream=self._capture_stream)
-            prog.build()
+            if key == "decode":
+                fn, shapes = self._decode_fn()
+            elif self.paged:
+                fn, shapes = self._chunk_fn(key)
+            else:
+                fn, shapes = self._prefill_fn(key)
+            prog = self.engine.compile_step(fn, shapes, *values)
             self._programs[key] = prog
-            self._builds[key] += 1
         return prog
+
+    def _dispatch(self, key: str | int, *values) -> np.ndarray:
+        """One call of the step of ``key`` on ``values``."""
+        return self.program(key, *values)(*values)
 
     def _decode_fn(self):
         """The slot step over all slots: (cur_tok [B,1], cache_index,
-        keys [B,2], active, temp (f32 bits), eos, gen, max_toks [B],
-        block_table [B,W]) -> (tok, cache_index', active', gen', done,
-        and the two words of step_keys, packed as [7, B]; logits)."""
+        keys [B,2], active, temp (f32 bits), eos, gen, max_toks [B]
+        [, block_table [B,W]]) -> (tok, cache_index', active', gen',
+        done, and the two words of step_keys, packed as [7, B];
+        logits)."""
         params, states, step = self.params, self.states, self._step
-        b, w = self.num_slots, self.table_width
+        b = self.num_slots
 
         def decode(cur_tok, cache_index, keys, active, temp, eos, gen,
-                   max_toks, block_table):
+                   max_toks, *block_table):
             with self.engine.backend_ctx():
                 _, tok, cache_index, keys, active, gen, done, logits = step(
                     params, states, cur_tok, cache_index, keys, active != 0,
                     temp.view(torch.float32), eos, gen, max_toks,
-                    block_table)
+                    *block_table)
             ints = torch.cat([torch.stack([tok, cache_index,
                                            active.to(torch.int32), gen,
                                            done.to(torch.int32)]), keys.T])
             return ints, logits
 
-        return decode, [(b, 1), (b,), (b, 2), (b,), (b,), (b,), (b,), (b,),
-                        (b, w)]
+        table = [(b, self.table_width)] if self.paged else []
+        return decode, [(b, 1), (b,), (b, 2), (b,), (b,), (b,), (b,),
+                        (b,)] + table
+
+    def _prefill_fn(self, length: int):
+        """A contiguous admission of a prompt of ``length`` tokens:
+        (tokens [1,length], slot [1], key [1,2], temp [1] (f32 bits)) ->
+        (token 0, drawn with ``key`` at ``temp`` [1, 1]; logits [1,1,V]).
+
+        The batch-1 window is zeroed past the prompt, the prompt
+        prefilled into it from position 0 (the reference's fresh
+        ``init_state``), and the whole window copied into row ``slot`` of
+        every layer's shared window (its ``_insert``)."""
+        params, states, one, cfg = (self.params, self.states, self._one,
+                                    self.cfg)
+
+        def prefill(tokens, slot, key, temp):
+            for st in one:
+                for t in st.values():
+                    t[:, length:].zero_()
+            start = torch.zeros((), dtype=torch.int32, device=tokens.device)
+            with self.engine.backend_ctx():
+                logits, _ = lm.forward(params, tokens, cfg, states=one,
+                                       cache_index=start, last_only=True)
+            row = slot.to(torch.int64)
+            for full, mine in zip(states, one):
+                for name, t in full.items():
+                    t.index_copy_(0, row, mine[name])
+            return sample_token(logits, key, temp.view(torch.float32)), \
+                logits
+
+        return prefill, [(1, length), (1,), (1, 2), (1,)]
 
     def _chunk_fn(self, length: int):
         """One chunk of ``length`` prompt tokens of one slot against the
@@ -382,10 +500,13 @@ class ContinuousBatchingScheduler:
     def step_programs(self) -> dict:
         """How many times each step was built: the counterpart of the
         reference's jit cache sizes, ``{"decode": 1, "chunk": {16: 1,
-        4: 1}}`` after a run whose chunks were 16 and 4 tokens long."""
-        return {"decode": self._builds["decode"],
-                "chunk": dict(sorted((k, n) for k, n in self._builds.items()
-                                     if k != "decode"))}
+        4: 1}}`` after a paged run whose chunks were 16 and 4 tokens
+        long, ``{"decode": 1, "prefill": {5: 1, 9: 1}}`` after a
+        contiguous run of prompts of 5 and 9 tokens."""
+        return {"decode": int("decode" in self._programs),
+                "chunk" if self.paged else "prefill": {
+                    k: 1 for k in sorted(k for k in self._programs
+                                         if k != "decode")}}
 
     def graphs_captured(self) -> tuple[int, float]:
         """(CUDA graphs captured, seconds spent building them: warm-up
@@ -395,7 +516,8 @@ class ContinuousBatchingScheduler:
 
     def last_logits(self) -> dict[str | int, torch.Tensor]:
         """Each step's logits from its last call, on the device ("decode"
-        [B,1,V], a chunk length [1,1,V]); the next call overwrites them."""
+        [B,1,V], a chunk or prompt length [1,1,V]); the next call
+        overwrites them."""
         return {k: p.aux[0] for k, p in self._programs.items() if p.aux}
 
     def _feed_prefills(self, step: int, out: dict[int, Completion]) -> int:
@@ -408,9 +530,9 @@ class ContinuousBatchingScheduler:
             req = pf.req
             key = prng.prng_key(req.seed).numpy()
             temp = np.float32(req.temperature)
-            tok0 = int(self.program(c)(pf.prompt[pf.pos:pf.pos + c],
-                                        pf.pos, self._block_table[slot],
-                                        key, temp.view(np.int32))[0, 0])
+            tok0 = int(self._dispatch(c, pf.prompt[pf.pos:pf.pos + c],
+                                      pf.pos, self._block_table[slot], key,
+                                      temp.view(np.int32))[0, 0])
             pf.pos += c
             dispatches += 1
             self.prefill_chunks += 1
@@ -424,16 +546,7 @@ class ContinuousBatchingScheduler:
                     int(self._slot_admitted[slot]), step)
                 self._retire(slot)
                 continue
-            self._cur_tok[slot, 0] = tok0
-            self._cache_index[slot] = len(pf.prompt)
-            self._keys[slot] = key
-            self._temp[slot] = temp
-            self._active[slot] = True
-            self._eos[slot] = req.eos_id if req.eos_id >= 0 else -1
-            self._gen[slot] = 1
-            self._max_toks[slot] = req.max_tokens
-            self._slot_toks[slot] = [tok0]
-            self._events.append((req.rid, 0, tok0))
+            self._start_decode(slot, req, tok0, key, temp, len(pf.prompt))
         return dispatches
 
     @torch.inference_mode()
@@ -445,11 +558,13 @@ class ContinuousBatchingScheduler:
         decoded = False
         if self._active.any():
             was_active = self._active.copy()
-            prog = self.program("decode")
+            args = (self._cur_tok, self._cache_index, self._keys,
+                    self._active, self._temp.view(np.int32), self._eos,
+                    self._gen, self._max_toks) \
+                + ((self._block_table,) if self.paged else ())
+            prog = self.program("decode", *args)
             t0 = time.perf_counter()
-            ints = prog(self._cur_tok, self._cache_index, self._keys,
-                        self._active, self._temp.view(np.int32), self._eos,
-                        self._gen, self._max_toks, self._block_table)
+            ints = prog(*args)
             self.decode_seconds += time.perf_counter() - t0
             self.decode_steps += 1
             tok, self._cache_index, active, self._gen, done = ints[:5]
@@ -505,7 +620,9 @@ class ContinuousBatchingScheduler:
             while pending and pending[0].arrival <= step:
                 ready.append(pending.popleft())
             while ready and self.can_fund(ready[0]):
-                self.start_request(ready.popleft(), step)
+                comp = self.start_request(ready.popleft(), step)
+                if comp is not None:        # finished at its first token
+                    out[comp.rid] = comp
             res = self.tick(step)
             work += res.dispatches
             out.update(res.completions)

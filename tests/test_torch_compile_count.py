@@ -1,7 +1,8 @@
 """The port's compile-count contract, the counterpart of
 ``tests/test_compile_count.py``: the scheduler builds its decode step
-once and its chunk prefill once per distinct chunk length, and a second
-run builds nothing new (``ContinuousBatchingScheduler.step_programs``,
+once and its chunk prefill (contiguous windows: its admission prefill)
+once per distinct chunk (prompt) length, and a second run builds
+nothing new (``ContinuousBatchingScheduler.step_programs``,
 the counterpart of the reference's jit cache sizes).
 
 On the CPU a compiled step runs eagerly through its static buffers, so
@@ -109,3 +110,27 @@ def test_mixed_temperatures_build_the_greedy_programs(models):
     for req in reqs:
         assert out[req.rid].tokens == again[req.rid].tokens == \
             oracle_completion(mixed.engine, req)
+
+
+def test_contiguous_decode_compiles_once(models):
+    """Contiguous windows (``kv_block_size=0``): one decode program
+    across mixed prompt lengths, one prefill program per prompt length,
+    and nothing new on a second run; the tokens equal the solo oracle's
+    and JAX's contiguous scheduler's."""
+    sched = ContinuousBatchingScheduler(models["tcfg"], models["params"],
+                                        device="cpu", num_slots=2,
+                                        max_len=32, kv_block_size=0)
+    assert sched.step_programs() == {"decode": 0, "prefill": {}}
+    out = sched.run(_reqs([3, 5]))
+    assert sched.step_programs() == {"decode": 1, "prefill": {3: 1, 5: 1}}
+    sched.run(_reqs([6, 2]))
+    want = {"decode": 1, "prefill": {2: 1, 3: 1, 5: 1, 6: 1}}
+    assert sched.step_programs() == want
+    again = sched.run(_reqs([3, 5]))
+    assert sched.step_programs() == want
+    js = JSched(models["jcfg"], models["raw"], kernel_backend="xla",
+                num_slots=2, max_len=32, kv_block_size=0)
+    jout = js.run(_reqs([3, 5], JRequest))
+    for req in _reqs([3, 5]):
+        assert out[req.rid].tokens == again[req.rid].tokens == \
+            oracle_completion(sched.engine, req) == jout[req.rid].tokens

@@ -627,3 +627,164 @@ def test_sampled_graph_and_eager_equal(dev, mode):
     assert out[True] == out[False]
     for req in reqs:
         assert out[True][req.rid] == oracle_completion(sched.engine, req)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous windows and the compiled token loop
+# ---------------------------------------------------------------------------
+
+MVM_OF = {"int8": "bitslice_mvm", "pum": "bitslice_mvm_scaled"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_contiguous_scheduler_equals_solo_loop_on_the_card(dev, mode):
+    """Contiguous windows attend through the solo loop's composition, so
+    on the card every completion equals its solo ``generate_loop`` (the
+    cuda backend), graphs and eager alike.  Staggered arrivals build
+    prefill programs while other slots decode: each warms up on its
+    admission's own inputs and moves no other row.  No K3 launch."""
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   oracle_completion, synthetic_workload)
+    cfg, params = _served(dev, mode)
+    reqs = synthetic_workload(6, cfg.vocab_size, min_prompt=3,
+                              max_prompt=20, max_new=6,
+                              mean_interarrival=1.5,
+                              temperature_choices=(0.0, 0.7), seed=7)
+    out = {}
+    for graphs in (True, False):
+        sched = ContinuousBatchingScheduler(
+            cfg, params, num_slots=2, max_len=32, kv_block_size=0,
+            device=dev, cuda_graphs=graphs)
+        registry.reset_launches()
+        out[graphs] = {r: c.tokens for r, c in sched.run(reqs).items()}
+        steps = sched.decode_steps + sched.prefill_chunks
+        assert registry.LAUNCHES == {MVM_OF[mode]: 7 * cfg.num_layers
+                                     * steps}
+        assert sched.step_programs()["decode"] == 1
+    assert out[True] == out[False]
+    for req in reqs:
+        assert out[True][req.rid] == oracle_completion(sched.engine, req)
+
+
+@pytest.mark.cuda
+def test_long_prompt_online_softmax_on_the_card(dev, monkeypatch):
+    """Blocks of 8: a 20-token prompt prefills through the online
+    softmax, in the scheduler's prefill graph and in the solo loop, with
+    the same tokens."""
+    from repro_torch.models import attention
+    from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                                   oracle_completion)
+    monkeypatch.setattr(attention, "CHUNK_Q", 8)
+    monkeypatch.setattr(attention, "CHUNK_K", 8)
+    cfg, params = _served(dev, "pum")
+    sched = ContinuousBatchingScheduler(cfg, params, num_slots=2,
+                                        max_len=32, kv_block_size=0,
+                                        device=dev)
+    reqs = [Request(list(range(3, 23)), 6, temperature=0.7, seed=1, rid=0),
+            Request(list(range(40, 45)), 6, rid=1)]
+    out = sched.run(reqs)
+    for req in reqs:
+        assert out[req.rid].tokens == oracle_completion(sched.engine, req)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_generate_graph_equals_loop_on_the_card(dev, mode):
+    """``generate`` replays a prefill graph and one decode-step graph
+    per token: the loop's tokens, eager dispatch's tokens, 7 MVM
+    launches a layer a forward, one build per (batch, prompt length,
+    temperature) whatever the step count."""
+    from repro_torch.serve import ServeEngine
+    cfg, params = _served(dev, mode)
+    eng = ServeEngine(cfg, params, max_len=32, device=dev)
+    eager = ServeEngine(cfg, params, max_len=32, device=dev,
+                        cuda_graphs=False)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5))
+    prompt = prompt.to(dev)
+    for temperature in (0.0, 0.8):
+        registry.reset_launches()
+        got = eng.generate(prompt, 6, temperature=temperature, seed=2)
+        torch.cuda.synchronize()
+        assert registry.LAUNCHES == {MVM_OF[mode]: 7 * cfg.num_layers * 6}
+        assert torch.equal(got, eng.generate_loop(prompt, 6, temperature,
+                                                  2))
+        assert torch.equal(got, eager.generate(prompt, 6, temperature, 2))
+        assert torch.equal(got, eng.generate(prompt, 6, temperature, 2))
+        assert torch.equal(got[:, :12], eng.generate(prompt, 3,
+                                                     temperature, 2))
+    assert eng.graphs_captured()[0] == 4
+    assert eng.scan_programs() == {(3, 9, 0.0): 1, (3, 9, 0.8): 1}
+
+
+def _twice(monkeypatch, tensors):
+    """Every call of every compiled step runs twice in a row, and the
+    second must leave the state (``tensors()``) and the outputs that the
+    first left: the idempotence rule of ``CompiledStep``, on which its
+    warm-up on real inputs rests."""
+    from repro_torch.serve.compiled import CompiledStep
+    launch = CompiledStep.launch
+
+    def twice(self):
+        launch(self)
+        first = [t.clone() for t in tensors()] + [self.ints.clone()]
+        launch(self)
+        again = tensors() + [self.ints]
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+    monkeypatch.setattr(CompiledStep, "launch", twice)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "contiguous", "generate"])
+def test_every_step_is_idempotent_on_its_inputs(dev, kind, monkeypatch):
+    """Each step kind (paged decode and chunk, contiguous decode and
+    admission prefill, ``generate``'s prefill and decode step) run
+    twice on the same inputs leaves what one run leaves, and a graph run
+    in which every call repeats so gives the tokens and the final state
+    of an eager run in which each call runs once."""
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   ServeEngine, synthetic_workload)
+    cfg, params = _served(dev, "pum")
+    reqs = synthetic_workload(5, cfg.vocab_size, min_prompt=3,
+                              max_prompt=20, max_new=6,
+                              temperature_choices=(0.0, 0.7), seed=4)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(5))
+    runs = {}
+    for graphs in (False, True):
+        if kind == "generate":
+            eng = ServeEngine(cfg, params, max_len=32, device=dev,
+                              cuda_graphs=graphs)
+
+            def tensors():
+                return [t for *_, window in eng._scans.values()
+                        for st in window for t in st.values()]
+        else:
+            sched = ContinuousBatchingScheduler(
+                cfg, params, num_slots=2, max_len=32,
+                kv_block_size=8 if kind == "paged" else 0,
+                chunked_prefill=kind == "paged", device=dev,
+                cuda_graphs=graphs)
+
+            def tensors():
+                return [t for st in sched.states + sched._one
+                        for t in st.values()]
+        if graphs:
+            _twice(monkeypatch, tensors)
+        if kind == "generate":
+            toks = [eng.generate(prompt.to(dev), 6, temperature=t, seed=2)
+                    for t in (0.0, 0.8)]
+        else:
+            toks = {r: c.tokens for r, c in sched.run(reqs).items()}
+        torch.cuda.synchronize()
+        runs[graphs] = toks, [t.clone() for t in tensors()]
+    if kind == "generate":
+        assert all(torch.equal(a, b) for a, b in zip(runs[True][0],
+                                                     runs[False][0]))
+    else:
+        assert runs[True][0] == runs[False][0]
+    assert len(runs[True][1]) == len(runs[False][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
+                                                 runs[False][1]))

@@ -4,7 +4,9 @@
     the JAX package (an AST scan, so comments and strings do not count);
   * every entry point called without ``device`` on a machine with no
     CUDA raises instead of running on the CPU;
-  * the serving and AES CLIs run end to end when the CPU is asked for.
+  * the serving and AES CLIs run end to end when the CPU is asked for:
+    the scheduler over paged blocks or contiguous windows, and the
+    static batch.
 """
 import ast
 import pathlib
@@ -113,6 +115,44 @@ def test_serve_cli_samples_at_its_temperature(capsys):
     for req in reqs:
         assert res["completions"][req.rid].tokens == oracle_completion(
             res["scheduler"].engine, req)
+
+
+def test_serve_cli_contiguous_windows(capsys):
+    """``--kv-block-size 0``: the contiguous scheduler, one prefill a
+    request, each completion equal to its solo oracle; chunked prefill
+    needs the paged pool."""
+    args = ["--reduced", "--device", "cpu", "--batch-slots", "2",
+            "--requests", "3", "--prompt-len", "9", "--gen", "4",
+            "--kv-block-size", "0", "--temperature", "0.5"]
+    res = serve.main(args)
+    assert "kv=contiguous(max_len=14)" in capsys.readouterr().out
+    sched = res["scheduler"]
+    assert not sched.paged and sched.prefill_chunks == 3
+    for req in res["requests"]:
+        assert res["completions"][req.rid].tokens == oracle_completion(
+            sched.engine, req)
+    with pytest.raises(ValueError, match="set kv_block_size > 0"):
+        serve.main(args + ["--chunked-prefill"])
+
+
+@pytest.mark.parametrize("temperature", ["0", "0.7"])
+def test_serve_cli_static_batch(temperature, capsys):
+    """``--batch-slots 0``: the static batch through ``generate``, the
+    compiled token loop and ``--loop`` giving the same tokens."""
+    args = ["--reduced", "--device", "cpu", "--batch-slots", "0",
+            "--batch", "3", "--prompt-len", "7", "--gen", "5",
+            "--temperature", temperature]
+    scan = serve.main(args)
+    loop = serve.main(args + ["--loop"])
+    out = capsys.readouterr().out
+    assert "decode=scan" in out and "decode=loop" in out
+    assert "generated 15 tokens" in out and "tok/s" in out
+    assert scan["out"].shape == (3, 12)
+    assert torch.equal(scan["out"], loop["out"])
+    assert torch.equal(scan["out"][:, :7], scan["prompt"])
+    assert scan["engine"].scan_programs() == {(3, 7, float(temperature)):
+                                              1}
+    assert loop["engine"].scan_programs() == {}
 
 
 def test_aes_cli_on_the_cpu_when_asked(capsys):

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import to_numpy
+from _torch_port import (agree_outside_near_ties, jax_logits_along, margin,
+                         scores_at, to_numpy)
 from repro.config import PUMConfig as JPUM, small_test_config as jsmall
 from repro.models import lm as jlm
 from repro.serve import ContinuousBatchingScheduler as JSched
@@ -60,7 +61,7 @@ def ref(request):
     js = JSched(jcfg, raw, kernel_backend="xla", **SCHED)
     out = js.run([JRequest(p, m, arrival=a) for p, m, a in TRACE])
     tokens = {rid: out[rid].tokens for rid in out}
-    logits = {rid: _jax_logits_along(js.engine, prompt, tokens[rid])
+    logits = {rid: jax_logits_along(js.engine, prompt, tokens[rid])
               for rid, (prompt, _, _) in enumerate(TRACE)}
     tcfg = tsmall(pum=TPUM(mode=mode), **KW)
     params = bridge.params_from_numpy(
@@ -69,54 +70,6 @@ def ref(request):
     return dict(mode=mode, tcfg=tcfg, params=params, tokens=tokens,
                 logits=logits, tol=tol, jcfg=jcfg, raw=raw,
                 jengine=js.engine)
-
-
-def _jax_logits_along(eng, prompt, tokens):
-    """JAX's last-position logits [len(tokens), V] before each of
-    ``tokens``, fed one by one through its solo prefill and decode."""
-    states, lg, _ = eng.prefill(jnp.asarray([prompt], jnp.int32))
-    steps = [np.asarray(lg)[0, -1]]
-    for i, tok in enumerate(tokens[:-1]):
-        with eng.mesh_ctx():
-            lg, states = eng._decode(eng.params, states,
-                                     jnp.asarray([[tok]], jnp.int32),
-                                     jnp.int32(len(prompt) + i))
-        steps.append(np.asarray(lg)[0, -1])
-    return np.stack(steps)
-
-
-def _margin(row):
-    top2 = np.sort(row)[-2:]
-    return float(top2[1] - top2[0])
-
-
-def _scores(logits, temperature, seed):
-    """JAX's per-step scores at ``temperature``: the logits at t <= 0,
-    else the Gumbel noise of the step's key plus ``logits / t``; the key
-    is ``PRNGKey(seed)`` for the first token, folded with ``i`` before
-    token ``i + 1`` (``generate_loop``'s chain, the slot step's too)."""
-    if temperature <= 0:
-        return logits
-    key, rows = jax.random.PRNGKey(seed), []
-    for i, row in enumerate(logits):
-        if i:
-            key = jax.random.fold_in(key, i - 1)
-        rows.append(np.asarray(jax.random.gumbel(key, row.shape))
-                    + row / np.float32(temperature))
-    return np.stack(rows)
-
-
-def _agree_outside_near_ties(got, want, scores, tol, temperature):
-    """``got`` equals ``want`` up to their first difference, which must
-    fall on a step whose JAX score margin is within 10x ``tol`` (over
-    ``t`` when sampling): past it the two legitimately diverge.  Returns
-    the steps that agree."""
-    bound = 10 * tol / (temperature if temperature > 0 else 1.0)
-    for i, w in enumerate(want):
-        if got[i] != w:
-            assert _margin(scores[i]) <= bound, (i, got, want)
-            return i
-    return len(want)
 
 
 def test_teacher_forced_logits_match(ref):
@@ -135,7 +88,7 @@ def test_teacher_forced_logits_match(ref):
         want = ref["logits"][rid]
         np.testing.assert_allclose(got, want, atol=ref["tol"], rtol=0)
         for i, row in enumerate(want):
-            if _margin(row) > 10 * ref["tol"]:
+            if margin(row) > 10 * ref["tol"]:
                 assert int(got[i].argmax()) == ref["tokens"][rid][i]
 
 
@@ -154,7 +107,7 @@ def test_scheduler_tokens_match_jax_and_own_oracle(ref):
                                         Request(prompt, max_tokens))
         # cross-framework: equal while JAX's choice is not a near-tie
         for i, want in enumerate(ref["tokens"][rid]):
-            if _margin(ref["logits"][rid][i]) <= 10 * ref["tol"]:
+            if margin(ref["logits"][rid][i]) <= 10 * ref["tol"]:
                 break
             assert got[i] == want, (rid, i, got, ref["tokens"][rid])
 
@@ -289,8 +242,8 @@ def sampled(ref):
         out = js.run([JRequest(p, m, arrival=a, temperature=t, seed=seed)
                       for p, m, a, t, seed in SAMPLED])
         tokens = {rid: out[rid].tokens for rid in out}
-        scores = {rid: _scores(_jax_logits_along(js.engine, p, tokens[rid]),
-                               t, seed)
+        scores = {rid: scores_at(
+                      jax_logits_along(js.engine, p, tokens[rid]), t, seed)
                   for rid, (p, _, _, t, seed) in enumerate(SAMPLED)}
     return dict(tokens=tokens, scores=scores)
 
@@ -309,7 +262,7 @@ def test_sampled_scheduler_matches_jax_and_own_oracle(ref, sampled):
         got = out[rid].tokens
         assert len(got) == req.max_tokens
         assert got == oracle_completion(sched.engine, req)
-        compared += _agree_outside_near_ties(
+        compared += agree_outside_near_ties(
             got, sampled["tokens"][rid], sampled["scores"][rid], ref["tol"],
             req.temperature)
     assert compared >= 6
@@ -334,7 +287,7 @@ def test_generate_loop_sampled_matches_jax(ref, temperature, seed):
         want = jeng.generate_loop(jnp.asarray([prompt], jnp.int32), steps,
                                   temperature=temperature, seed=seed)
         want = np.asarray(want)[0, len(prompt):].tolist()
-        scores = _scores(_jax_logits_along(jeng, prompt, want), temperature,
-                         seed)
-    assert _agree_outside_near_ties(got, want, scores, ref["tol"],
-                                    temperature) >= 2
+        scores = scores_at(jax_logits_along(jeng, prompt, want),
+                           temperature, seed)
+    assert agree_outside_near_ties(got, want, scores, ref["tol"],
+                                   temperature) >= 2
