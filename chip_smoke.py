@@ -19,6 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    computes the same function, beside the card's least time (bound);
    then sums K1's and K2's times over the 7 x 36 projections of a
    decode step (M=4) and of a prefill chunk (M=16) beside their bound.
+   The same for xLSTM-350M's 120 projections (1024 x 6144, 1024 x 4,
+   1024 x 2048, 2048 x 1024): at N = 4, mLSTM's gates, the packed
+   entries pad the planes to 16 columns a call, timed beside the same
+   launches on planes padded once.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -111,17 +115,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    peak memory, and a decode replay's device ms beside the paged
    scheduler's on the same trace, timed in turns (paged, contiguous,
    contiguous, paged).
-10. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-9) must have launched there;
+10. xlstm — xLSTM-350M at full width and depth (18 mLSTM + 6 sLSTM
+   layers, random weights), in ``pum`` and ``int8``: the CLI on phase
+   4's trace paged (blocks of 16, chunked prefill; no KV, so 0 blocks a
+   request) and with ``--kv-block-size 0``, then on both schedulers
+   phase 8's six sampled requests, gated: each completion equal to the
+   request served alone through ``generate_loop`` on the ``cuda``
+   backend, in both layouts; the greedy runs paged == contiguous; a
+   second run builds nothing; one decode program; graphs == eager in
+   tokens and launches; each recurrent step built and called once
+   leaves the state one eager call leaves (fresh schedulers, step by
+   step); 120 MVM launches a step, chunk or prompt and no K3; states
+   and every step's last logits finite; backend parity; then the static
+   batch (scan == ``--loop``, t = 0).  Prints decode ms/step (graphs and
+   eager), tokens/s, a decode replay's device ms with K1's or K2's
+   share (profiler) and the recurrences' (the cells timed alone), a
+   64-token prompt's prefill device ms, graph build seconds, the
+   recurrent bytes a slot beside Qwen2.5-3B's KV bytes, and the phase's
+   seconds.
+11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-10) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
    (``cnn_shapes``), K1's and K2's their rows at M = 4096
-   (``prefill_shape``).
+   (``prefill_shape``) and at xLSTM-350M's shapes (``xlstm_shapes``).
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
 ``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
-phases 1, 2 and 9.
+phases 1, 2 and 9, ``--only xlstm`` phases 1, 2, phase 3's xLSTM
+shapes and 10.
 """
 from __future__ import annotations
 
@@ -268,99 +291,137 @@ def mvm_ops(m: int, k: int, n: int) -> int:
     return 2 * m * k * n
 
 
-def check_mvm(dev, gpu_name: str) -> dict[str, dict]:
+def mvm_case(dev, g, m: int, k: int, n: int, planes, one) -> dict:
+    """K1 (``bitslice_mvm_planes_scaled``, 4 planes) and K2
+    (``bitslice_mvm_planes``, the int8 weight as one plane) at one
+    shape: bit for bit against their plain versions, two calls equal,
+    then timed with the weights rotated past the L2 cache, beside the
+    plain versions, ``torch._int_mm`` and their bounds."""
     import torch
-    from repro_torch.core import bitslice
     from repro_torch.kernels import registry
     from repro_torch.kernels.bitslice_mvm import ops
-    bw, _, int8_rate = peaks(gpu_name)
+    bw, _, int8_rate = peaks(torch.cuda.get_device_name(dev))
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((m, 1), generator=g, device=dev) * 1e-3
+    got1 = ops.bitslice_mvm_planes_scaled(x, planes, scale, backend="cuda")
+    ref1 = ops.bitslice_mvm_planes_scaled(x, planes, scale, backend="torch")
+    got2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8, backend="cuda")
+    ref2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8, backend="torch")
+    got4 = ops.bitslice_mvm_planes(x, planes, backend="cuda")
+    torch.cuda.synchronize()
+    exact = (torch.equal(got1, ref1) and torch.equal(got2, ref2)
+             and torch.equal(got4, ref2))
+    err1 = (got1 - ref1).abs().max().item()
+    err2 = (got2 - ref2).abs().max().item()
+    if not exact:
+        raise AssertionError(
+            f"bitslice_mvm not bit-exact at M={m} K={k} N={n}: scaled "
+            f"max|diff|={err1}, int max|diff|={err2}, 4-plane int equal="
+            f"{torch.equal(got4, ref2)}")
+    if not (deterministic(lambda: ops.bitslice_mvm_planes_scaled(
+            x, planes, scale, backend="cuda"))
+            and deterministic(lambda: ops.bitslice_mvm_planes(
+                x, one, bits_per_slice=8, backend="cuda"))):
+        raise AssertionError(f"bitslice_mvm differs between two calls at "
+                             f"M={m} K={k} N={n}")
+    npad = -(-n // ops.VEC) * ops.VEC
+    splits = ops.mvm_plan(m, k, npad, 4, registry.device_props(
+        dev.index)).splits
+    # timings with the weights rotated past the L2 cache
+    rp = Rotating(lambda: planes.clone(), planes.numel())
+    rw = Rotating(lambda: one.clone(), one.numel())
+    xpad = torch.zeros((max(32, -(-m // 8) * 8), k), dtype=torch.int8,
+                       device=dev)
+    xpad[:m] = x
+    t1 = device_ms(lambda: ops.bitslice_mvm_planes_scaled(
+        x, rp.next(), scale, backend="cuda"))
+    t2 = device_ms(lambda: ops.bitslice_mvm_planes(
+        x, rw.next(), bits_per_slice=8, backend="cuda"))
+    p1 = device_ms(lambda: ops.bitslice_mvm_planes_scaled(
+        x, rp.next(), scale, backend="torch"), iters=5)
+    p2 = device_ms(lambda: ops.bitslice_mvm_planes(
+        x, rw.next(), bits_per_slice=8, backend="torch"), iters=5)
+    # _int_mm takes N in multiples of 8: the library call at N < 8 reads
+    # the weight padded to 8 columns
+    wlib = torch.zeros((k, max(8, -(-n // 8) * 8)), dtype=torch.int8,
+                       device=dev)
+    wlib[:, :n] = one[0]
+    rl = Rotating(lambda: wlib.clone(), wlib.numel())
+    lib = device_ms(lambda: torch._int_mm(xpad, rl.next()))
+    # the planes recombine to wq exactly (mvm_ops), so the function's
+    # work is one int8 GEMM; the planes' bytes count
+    b1 = max((m * k + 4 * k * n + 4 * m + 4 * m * n) / bw,
+             mvm_ops(m, k, n) / int8_rate) * 1e3
+    b2 = max((m * k + k * n + 4 * m * n) / bw,
+             2 * m * k * n / int8_rate) * 1e3
+    if n % ops.VEC:
+        # the same launches on planes padded once: the per-call pad's cost
+        p1pad, p2pad = ops._padded(planes), ops._padded(one)
+        t1p = device_ms(lambda: ops._launch(x, p1pad, scale.reshape(-1), 2))
+        t2p = device_ms(lambda: ops._launch(x, p2pad, None, 8))
+        log(f"mvm M={m} K={k} N={n}: planes padded to {npad} columns once, "
+            f"K1 {t1p:.4f} ms, K2 {t2p:.4f} ms; the per-call pad adds "
+            f"{t1 - t1p:.4f} / {t2 - t2p:.4f} ms")
+    log(f"mvm M={m} K={k} N={n} (K1 split {splits} ways over K): exact, "
+        f"two calls bit-equal | K1 scaled {t1:.4f} ms (plain {p1:.4f}, "
+        f"bound {b1:.4f}, {share(b1, t1)} of bound) | K2 int8 {t2:.4f} ms "
+        f"(plain {p2:.4f}, bound {b2:.4f}, {share(b2, t2)} of bound) | "
+        f"_int_mm(M={xpad.shape[0]}) {lib:.4f} ms")
+    return {"K1": dict(M=m, K=k, N=n, max_abs_err=err1, ms=t1, plain_ms=p1,
+                       bound_ms=b1, bound_by="bytes", library_ms=lib),
+            "K2": dict(M=m, K=k, N=n, max_abs_err=err2, ms=t2, plain_ms=p2,
+                       bound_ms=b2, bound_by="bytes", library_ms=lib)}
+
+
+def mvm_weights(dev, g, k: int, n: int):
+    """A random int8 weight as K1's four planes and K2's one plane."""
+    import torch
+    from repro_torch.core import bitslice
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
+    return planes, wq.to(torch.int8)[None]
+
+
+def mvm_sweep(dev, shapes: dict, layers: int, label: str,
+              rows: list[int]) -> list[dict]:
+    """``mvm_case`` over ``shapes`` ((K, N) -> projections of that shape
+    a forward pass) at each M of ``rows``; then K1's and K2's summed
+    device time over a decode step (M=4) and a prefill chunk (M=16)
+    beside their bound.  Returns every case's row."""
+    import torch
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = {}
-    # a decode step of the serve run's 4 slots (M=4) and a prefill chunk
-    # of 16 tokens (M=16): (kernel, M) -> [ms, bound]
     step = {(name, m): [0.0, 0.0] for m in STEP_ROWS for name in ("K1", "K2")}
-    for k, n in MVM_SHAPES:
-        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                           dtype=torch.int32)
-        planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
-        wq8 = wq.to(torch.int8)
-        one = wq8[None]
-        for m in MVM_ROWS:
-            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
-                              dtype=torch.int32).to(torch.int8)
-            scale = torch.rand((m, 1), generator=g, device=dev) * 1e-3
-            got1 = ops.bitslice_mvm_planes_scaled(x, planes, scale,
-                                                  backend="cuda")
-            ref1 = ops.bitslice_mvm_planes_scaled(x, planes, scale,
-                                                  backend="torch")
-            got2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8,
-                                           backend="cuda")
-            ref2 = ops.bitslice_mvm_planes(x, one, bits_per_slice=8,
-                                           backend="torch")
-            got4 = ops.bitslice_mvm_planes(x, planes, backend="cuda")
-            torch.cuda.synchronize()
-            exact = (torch.equal(got1, ref1) and torch.equal(got2, ref2)
-                     and torch.equal(got4, ref2))
-            err1 = (got1 - ref1).abs().max().item()
-            err2 = (got2 - ref2).abs().max().item()
-            if not exact:
-                raise AssertionError(
-                    f"bitslice_mvm not bit-exact at M={m} K={k} N={n}: "
-                    f"scaled max|diff|={err1}, int max|diff|={err2}, "
-                    f"4-plane int equal="
-                    f"{torch.equal(got4, ref2)}")
-            if not (deterministic(lambda: ops.bitslice_mvm_planes_scaled(
-                    x, planes, scale, backend="cuda"))
-                    and deterministic(lambda: ops.bitslice_mvm_planes(
-                        x, one, bits_per_slice=8, backend="cuda"))):
-                raise AssertionError(f"bitslice_mvm differs between two calls "
-                                     f"at M={m} K={k} N={n}")
-            splits = ops.mvm_plan(m, k, n, 4, registry.device_props(
-                dev.index)).splits
-            # timings with the weights rotated past the L2 cache
-            rp = Rotating(lambda: planes.clone(), planes.numel())
-            rw = Rotating(lambda: one.clone(), one.numel())
-            xpad = torch.zeros((32, k), dtype=torch.int8, device=dev)
-            xpad[:m] = x
-            k1 = lambda: ops.bitslice_mvm_planes_scaled(   # noqa: E731
-                x, rp.next(), scale, backend="cuda")
-            k2 = lambda: ops.bitslice_mvm_planes(            # noqa: E731
-                x, rw.next(), bits_per_slice=8, backend="cuda")
-            t1, t2 = device_ms(k1), device_ms(k2)
-            p1 = device_ms(lambda: ops.bitslice_mvm_planes_scaled(
-                x, rp.next(), scale, backend="torch"), iters=5)
-            p2 = device_ms(lambda: ops.bitslice_mvm_planes(
-                x, rw.next(), bits_per_slice=8, backend="torch"), iters=5)
-            lib = device_ms(lambda: torch._int_mm(xpad, rw.next()[0]))
-            # the planes recombine to wq exactly (mvm_ops), so the
-            # function's work is one int8 GEMM; the planes' bytes count
-            b1 = max((m * k + 4 * k * n + 4 * m + 4 * m * n) / bw,
-                     mvm_ops(m, k, n) / int8_rate) * 1e3
-            b2 = max((m * k + k * n + 4 * m * n) / bw,
-                     2 * m * k * n / int8_rate) * 1e3
-            log(f"mvm M={m} K={k} N={n} (K1 split {splits} ways over K): "
-                f"exact, two calls bit-equal | K1 scaled {t1:.4f} ms "
-                f"(plain {p1:.4f}, bound {b1:.4f}, {share(b1, t1)} of "
-                f"bound) | K2 int8 {t2:.4f} ms (plain {p2:.4f}, bound "
-                f"{b2:.4f}, {share(b2, t2)} of bound) | _int_mm(M=32) "
-                f"{lib:.4f} ms")
+    cases = []
+    for (k, n), count in shapes.items():
+        planes, one = mvm_weights(dev, g, k, n)
+        for m in rows:
+            case = mvm_case(dev, g, m, k, n, planes, one)
+            cases.append(case)
             if m in STEP_ROWS:
-                n_step = LAYERS * MVM_PER_LAYER[(k, n)]
-                for name, t, b in (("K1", t1, b1), ("K2", t2, b2)):
-                    step[name, m][0] += n_step * t
-                    step[name, m][1] += n_step * b
-            if (m, k, n) == (4, 2048, 11008):
-                rows["bitslice_mvm_scaled"] = dict(
-                    max_abs_err=err1, ms=t1, plain_ms=p1, bound_ms=b1,
-                    bound_by="bytes", library_ms=lib)
-                rows["bitslice_mvm"] = dict(
-                    max_abs_err=err2, ms=t2, plain_ms=p2, bound_ms=b2,
-                    bound_by="bytes", library_ms=lib)
+                for name in ("K1", "K2"):
+                    step[name, m][0] += count * case[name]["ms"]
+                    step[name, m][1] += count * case[name]["bound_ms"]
+    per_pass = sum(shapes.values())
     for (name, m), (ms, bound) in step.items():
-        log(f"mvm {name} device time per {STEP_ROWS[m]} at M={m} "
-            f"({LAYERS} layers x 7 projections): {ms:.3f} ms (bound "
+        log(f"mvm {name} device time per {STEP_ROWS[m]} of {label} at M={m} "
+            f"({per_pass} projections, {layers} layers): {ms:.3f} ms (bound "
             f"{bound:.3f} ms)")
-    return rows
+    return cases
+
+
+def check_mvm(dev) -> dict[str, dict]:
+    """Phase 3's MVM checks at Qwen2.5-3B's shapes; K1's and K2's rows
+    of the kernels line (M=4, 2048 x 11008)."""
+    cases = mvm_sweep(dev, {s: LAYERS * c for s, c in MVM_PER_LAYER.items()},
+                      LAYERS, "Qwen2.5-3B", MVM_ROWS)
+    case = next(c for c in cases if (c["K1"]["M"], c["K1"]["K"],
+                                     c["K1"]["N"]) == (4, 2048, 11008))
+    return {name: {k: v for k, v in case[kern].items()
+                   if k not in ("M", "K", "N")}
+            for name, kern in (("bitslice_mvm_scaled", "K1"),
+                               ("bitslice_mvm", "K2"))}
 
 
 ATTN_CASES = [(1, 81), (16, 81), (1, 1024)]       # (S, T window)
@@ -628,15 +689,32 @@ MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm",
                "bf16": None}
 
 
-def launch_gate(mode: str, layers: int, steps: int, chunks: int,
+def per_pass(cfg) -> tuple[int, int]:
+    """(MVM launches, attention layers) of one forward pass: q, k, v and
+    o of an attention layer, the five projections of an mLSTM (qkv, i,
+    f, output gate, out) or sLSTM (z, i, f, o, out) layer, and the MLP's
+    (gate, up, down when gated): 7 a Qwen2.5-3B layer, 5 an xLSTM-350M
+    one (it has no MLP)."""
+    from repro_torch.models import transformer
+    kinds = [transformer.layer_kinds(cfg, j) for j in range(cfg.num_layers)]
+    mlp = 3 if cfg.activation == "silu" else 2
+    attn = sum(mk == "attn" for mk, _ in kinds)
+    mvm = sum((4 if mk == "attn" else 5) + mlp * (fk == "mlp")
+              for mk, fk in kinds)
+    return mvm, attn
+
+
+def launch_gate(mode: str, cfg, steps: int, chunks: int,
                 launches: dict, paged: bool = True) -> dict:
-    """Every decode step and prefill chunk: 7 launches a layer of the
-    mode's MVM kernel and none of the other, and one K3 call a layer
-    over the paged pool, none over contiguous windows."""
+    """Every decode step and prefill chunk: the projections of every
+    layer (``per_pass``) on the mode's MVM kernel and none on the other,
+    and one K3 call an attention layer over the paged pool, none over
+    contiguous windows."""
+    mvm, attn = per_pass(cfg)
     want = {"bitslice_mvm_scaled": 0, "bitslice_mvm": 0,
-            "paged_attention": layers * (steps + chunks) if paged else 0}
+            "paged_attention": attn * (steps + chunks) if paged else 0}
     if MVM_OF_MODE[mode]:
-        want[MVM_OF_MODE[mode]] = 7 * layers * (steps + chunks)
+        want[MVM_OF_MODE[mode]] = mvm * (steps + chunks)
     got = {k: launches.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"{mode}: launches {got}, expected {want} for "
@@ -694,7 +772,7 @@ def serve_run(mode: str, smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"{mode}: completions "
                              f"{[(c.rid, c.tokens) for c in comps.values()]}")
     steps, chunks = sched.decode_steps, sched.prefill_chunks
-    got = launch_gate(mode, cfg.num_layers, steps, chunks, launches)
+    got = launch_gate(mode, cfg, steps, chunks, launches)
     progs = sched.step_programs()
     built = [progs["decode"], *progs["chunk"].values()]
     if any(n != 1 for n in built) or res["graphs"] != len(built):
@@ -934,7 +1012,7 @@ def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
             raise AssertionError(f"{mode}: the second run built "
                                  f"{sched.step_programs()} (had {progs}) or "
                                  f"changed its tokens")
-        launch_gate(mode, sched.cfg.num_layers, steady["steps"],
+        launch_gate(mode, sched.cfg, steady["steps"],
                     steady["chunks"], steady["launches"])
         eager_sched = like(sched, cuda_graphs=False)
         eager = timed_run(eager_sched, res["requests"])
@@ -1449,7 +1527,7 @@ def sampled_run(mode: str, greedy: dict, sampler_ms: float,
             for c in comps.values()):
         raise AssertionError(f"sampled {mode}: CLI completions "
                              f"{[(c.rid, c.tokens) for c in comps.values()]}")
-    launch_gate(mode, cfg.num_layers, sched.decode_steps,
+    launch_gate(mode, cfg, sched.decode_steps,
                 sched.prefill_chunks, launches)
     progs = sched.step_programs()
     if progs["decode"] != 1 or any(n != 1 for n in progs["chunk"].values()):
@@ -1496,7 +1574,7 @@ def sampled_run(mode: str, greedy: dict, sampler_ms: float,
             any(tokens[r] != greedy["tokens"][r] for r in hottest),
     }
     for run in (first, again, reseeded, eager):
-        launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+        launch_gate(mode, cfg, run["steps"], run["chunks"],
                     run["launches"])
     failed = [k for k, ok in gates.items() if not ok]
     log(f"sampled {mode}: 6 requests at temperatures {list(SAMPLED_TEMPS)}, "
@@ -1721,7 +1799,7 @@ def contiguous_long(sched, reqs, mode: str, smi: str) -> None:
     long_req = long_request(cfg.vocab_size)
     trace = reqs + [long_req]
     run = timed_run(big, trace)
-    launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+    launch_gate(mode, cfg, run["steps"], run["chunks"],
                 run["launches"], paged=False)
     progs = big.step_programs()
     lengths = {len(r.prompt) for r in trace}
@@ -1774,7 +1852,8 @@ def contiguous_long(sched, reqs, mode: str, smi: str) -> None:
     registry.reset_launches()
 
 
-def static_phase(mode: str, smi: str) -> dict[str, int]:
+def static_phase(mode: str, smi: str, args=None,
+                 temps=STATIC_TEMPS) -> dict[str, int]:
     """The CLI's static batch (``--batch-slots 0``) with the compiled
     token loop and with ``--loop``, at each of STATIC_TEMPS: gated equal
     token for token, the same seed the same tokens with nothing new
@@ -1787,9 +1866,10 @@ def static_phase(mode: str, smi: str) -> dict[str, int]:
     from repro_torch.launch import serve
     from repro_torch.serve import ServeEngine
     first = None
-    gen = int(STATIC_ARGS[STATIC_ARGS.index("--gen") + 1])
-    for temp in STATIC_TEMPS:
-        args = STATIC_ARGS + ["--pum-mode", mode, "--temperature", str(temp)]
+    base = STATIC_ARGS if args is None else args
+    gen = int(base[base.index("--gen") + 1])
+    for temp in temps:
+        args = base + ["--pum-mode", mode, "--temperature", str(temp)]
         # the per-token loop first, and only its tokens kept: one model
         # on the card at a time
         registry.reset_launches()
@@ -1821,7 +1901,7 @@ def static_phase(mode: str, smi: str) -> dict[str, int]:
         other = eng.generate(prompt, gen, temperature=temp, seed=1)
         half = eng.generate(prompt, gen // 2, temperature=temp, seed=0)
         for launches in (scan_launches, loop_launches):
-            launch_gate(mode, cfg.num_layers, gen, 0, launches, paged=False)
+            launch_gate(mode, cfg, gen, 0, launches, paged=False)
         gates = {
             "scan equals the per-token loop": torch.equal(scan["out"],
                                                           loop_out),
@@ -1840,7 +1920,8 @@ def static_phase(mode: str, smi: str) -> dict[str, int]:
         }
         failed = [k for k, ok in gates.items() if not ok]
         toks = scan["tokens"]
-        log(f"static {mode} t={temp}: batch 4 x 64 prompt tokens, {gen} "
+        log(f"static {cfg.name} {mode} t={temp}: batch 4 x 64 prompt "
+            f"tokens, {gen} "
             f"tokens each; scan (build included) {scan['wall_s']:.3f} s = "
             f"{toks / scan['wall_s']:.1f} tok/s, loop {loop_s:.3f} s = "
             f"{toks / loop_s:.1f} tok/s; steady scan {steady_s:.3f} s = "
@@ -1875,7 +1956,7 @@ def contiguous_run(mode: str, smi: str) -> dict[str, int]:
     tokens = tokens_of(res["completions"])
     if len(tokens) != 6 or any(len(t) != 16 for t in tokens.values()):
         raise AssertionError(f"contiguous {mode}: completions {tokens}")
-    launch_gate(mode, cfg.num_layers, sched.decode_steps,
+    launch_gate(mode, cfg, sched.decode_steps,
                 sched.prefill_chunks, launches, paged=False)
     progs = sched.step_programs()
     lengths = {len(r.prompt) for r in res["requests"]}
@@ -1915,7 +1996,7 @@ def contiguous_run(mode: str, smi: str) -> dict[str, int]:
         "prefill)": contig_t == paged_t,
     }
     for run in (steady, eager):
-        launch_gate(mode, cfg.num_layers, run["steps"], run["chunks"],
+        launch_gate(mode, cfg, run["steps"], run["chunks"],
                     run["launches"], paged=False)
     failed = [k for k, ok in gates.items() if not ok]
     log(f"contiguous {mode}: 6 requests x 16 tokens, {steady['steps']} decode "
@@ -1959,6 +2040,298 @@ def contiguous_phase(dev, gpu_name: str,
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the xLSTM family (mLSTM and sLSTM mixers, per-slot state)
+# ---------------------------------------------------------------------------
+
+# phase 4's trace on xLSTM-350M: paged (blocks of 16, chunked prefill; it
+# pages no KV, so a request takes 0 blocks) and from contiguous windows;
+# and the static batch
+XLSTM_ARGS = ["--arch", "xlstm-350m"] + SERVE_ARGS[2:]
+XLSTM_CONTIG_ARGS = ["--arch", "xlstm-350m"] + CONTIG_ARGS[2:]
+XLSTM_STATIC_ARGS = ["--arch", "xlstm-350m"] + STATIC_ARGS[2:]
+# xLSTM-350M's projections by (K, N), counted over a forward pass of its
+# 18 mLSTM (qkv; i and f, N = heads = 4; output gate; out) and 6 sLSTM
+# (z, i, f, o; out) layers: 120
+XLSTM_LAYERS = 24
+XLSTM_MVM = {(1024, 6144): 18, (1024, 4): 36, (1024, 2048): 42,
+             (2048, 1024): 24}
+# Qwen2.5-3B's KV bytes a slot at the same window, for comparison: 36
+# layers x K and V x 2 KV heads x 128 lanes x 2 bytes a position
+QWEN_KV_BYTES_A_POSITION = 36 * 2 * 2 * 128 * 2
+
+
+def check_xlstm_mvm(dev) -> list[dict]:
+    """K1 and K2 at xLSTM-350M's shapes, N = 4 (mLSTM's gates, padded
+    to 16 columns on the kernel) among them, at M in {1, 4, 16}."""
+    return mvm_sweep(dev, XLSTM_MVM, XLSTM_LAYERS, "xLSTM-350M", MVM_ROWS)
+
+
+def recurrent_snapshot(sched) -> list:
+    from repro_torch.models import lm
+    return [t.clone() for t in lm.recurrent_tensors(sched.cfg, sched.states)]
+
+
+def advance_once(sched) -> bool:
+    """The compiled step's rule on the recurrent steps: a fresh
+    scheduler of ``sched``'s geometry with graphs, one without, the same
+    two requests admitted and ticked; after every call (each program
+    built at its first: warm-up, capture, replay) the recurrent state
+    and the tokens of both are equal bit for bit."""
+    import torch
+    from repro_torch.serve import Request
+    runs = {}
+    for graphs in (True, False):
+        s = like(sched, graphs)
+        snaps, events = [], []
+        for req in (Request(list(range(1, 21)), 3, rid=0),
+                    Request(list(range(30, 37)), 3, temperature=0.7,
+                            seed=5, rid=1)):
+            s.start_request(req)
+            snaps.append(recurrent_snapshot(s))
+        for step in range(4):
+            events += s.tick(step).events
+            snaps.append(recurrent_snapshot(s))
+        torch.cuda.synchronize()
+        runs[graphs] = events, snaps
+        del s
+    (ev_g, sn_g), (ev_e, sn_e) = runs[True], runs[False]
+    return ev_g == ev_e and len(ev_g) > 0 and all(
+        torch.equal(a, b) for x, y in zip(sn_g, sn_e) for a, b in zip(x, y))
+
+
+def nonfinite(sched) -> list[str]:
+    """Where ``sched``'s recurrent states (by layer, leaf and row) or the
+    last logits of any of its steps (by row) are not finite.  Each
+    graph keeps its logits outside the pool the graphs share, so a
+    step's logits hold until its own next call (``CompiledStep``)."""
+    import torch
+    from repro_torch.models import transformer
+
+    def rows(t):
+        bad = ~torch.isfinite(t.reshape(t.shape[0], -1)).all(dim=1)
+        return bad.nonzero().flatten().tolist()
+
+    out = []
+    for j, st in enumerate(sched.states):
+        if transformer.layer_kinds(sched.cfg, j)[0] == "attn":
+            continue
+        out += [f"layer {j} {name} rows {r}" for name, t in st.items()
+                if (r := rows(t))]
+    out += [f"step {key} logits rows {r}"
+            for key, t in sched.last_logits().items() if (r := rows(t))]
+    return out
+
+
+def recurrence_ms(cfg, slots: int) -> float:
+    """Device time of the recurrences of one decode step alone: every
+    mLSTM and sLSTM layer's cell at ``slots`` rows on random f32 inputs
+    (``models/xlstm.py``'s ``_mlstm_step`` and ``_slstm_step``)."""
+    import torch
+    from repro_torch.models import transformer, xlstm
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    inner, heads, hd = xlstm._dims(cfg)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    kinds = [transformer.layer_kinds(cfg, j)[0]
+             for j in range(cfg.num_layers)]
+    m_state = (rnd(slots, heads, hd, hd), rnd(slots, heads, hd).abs(),
+               rnd(slots, heads))
+    m_in = (rnd(slots, heads, hd), rnd(slots, heads, hd),
+            rnd(slots, heads, hd), rnd(slots, heads), rnd(slots, heads))
+    s_state = (rnd(slots, inner), rnd(slots, inner).abs(), rnd(slots, inner))
+    s_in = tuple(rnd(slots, inner) for _ in range(4))
+
+    def cells():
+        for kind in kinds:
+            if kind == "mlstm":
+                xlstm._mlstm_step(m_state, *m_in)
+            else:
+                xlstm._slstm_step(s_state, s_in)
+    return device_ms(cells, iters=2)
+
+
+def xlstm_measure(sched, contig, smi: str) -> None:
+    """Phase 10's numbers in one mode: a decode replay's device time and
+    its split under the profiler, the recurrences alone, a 64-token
+    prompt's prefill, and the state bytes a slot."""
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve import prng
+    mode, cfg = sched.cfg.pum.mode, sched.cfg
+    replay_ms = step_device_ms(sched)
+    prog = sched.program("decode")
+    _, by_name = kernel_times(prog.launch)
+    if by_name:
+        total = sum(by_name.values()) / 1e3
+        mvm = sum(us for name, us in by_name.items()
+                  if "bitslice_mvm_kernel" in name) / 1e3
+        prof = (f"under the profiler {total:.3f} ms of kernels, the MVM "
+                f"kernel {mvm:.3f} ms ({100 * mvm / total:.1f} %); top: "
+                f"{top_kernels(by_name, 5)}")
+    else:
+        prof = "the profiler saw no device time (not measured)"
+    rec_ms = recurrence_ms(cfg, sched.num_slots)
+    # a 64-token prompt's admission prefill into the idle slot 0
+    prompt = list(range(1, 65))
+    pre = contig.program(64, [prompt], 0, prng.prng_key(1).numpy(),
+                         np.float32(0.0).view(np.int32))
+    pre.stage([prompt], 0, prng.prng_key(1).numpy(),
+              np.float32(0.0).view(np.int32))
+    prefill_ms = event_ms(pre.launch, reps=3)
+    state_bytes = sum(t.nbytes for t in lm.recurrent_tensors(
+        cfg, sched.states)) / sched.num_slots
+    qwen_bytes = QWEN_KV_BYTES_A_POSITION * sched.max_len
+    log(f"xlstm {mode} decode step ({sched.num_slots} slots): a graph "
+        f"replay {replay_ms:.4f} ms of device time; {prof}; the "
+        f"recurrences alone (18 mLSTM + 6 sLSTM cells at {sched.num_slots} "
+        f"rows) {rec_ms:.4f} ms = {100 * rec_ms / replay_ms:.1f} % of the "
+        f"replay on {smi}")
+    log(f"xlstm {mode} prefill of a 64-token prompt (contiguous admission, "
+        f"one replay): {prefill_ms:.3f} ms of device time, "
+        f"{dict(pre.launches)} launches; recurrent state "
+        f"{state_bytes / 2**20:.2f} MiB a slot against Qwen2.5-3B's KV "
+        f"{qwen_bytes / 2**20:.2f} MiB a slot at the same window "
+        f"({sched.max_len} positions) on {smi}")
+
+
+def xlstm_run(mode: str, smi: str) -> dict[str, int]:
+    """Phase 10 in one mode: the CLI paged and contiguous (its main
+    paths, whose launches are returned with the static batch's), then on
+    their schedulers phase 8's sampled requests, with every gate."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import oracle_completion
+    t0 = time.perf_counter()
+    launches: dict[str, int] = {}
+    runs = {}
+    for layout, args in (("paged", XLSTM_ARGS),
+                         ("contiguous", XLSTM_CONTIG_ARGS)):
+        registry.reset_launches()
+        res = serve.main(args + ["--pum-mode", mode])
+        torch.cuda.synchronize()
+        counts = dict(registry.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        sched = res["scheduler"]
+        launch_gate(mode, sched.cfg, sched.decode_steps,
+                    sched.prefill_chunks, counts, paged=False)
+        progs = sched.step_programs()
+        built = [progs["decode"], *next(v for k, v in progs.items()
+                                        if k != "decode").values()]
+        comps = res["completions"]
+        if len(comps) != 6 or any(len(c.tokens) != 16
+                                  for c in comps.values()) \
+                or any(n != 1 for n in built) \
+                or res["graphs"] != len(built):
+            raise AssertionError(f"xlstm {mode} {layout}: completions "
+                                 f"{tokens_of(comps)}, programs {progs}, "
+                                 f"{res['graphs']} graphs")
+        runs[layout] = res
+        log(f"xlstm {mode} {layout}: {sched.cfg.name} {sched.cfg.num_layers} "
+            f"layers d_model {sched.cfg.d_model}, 6 requests x 16 tokens, "
+            f"{sched.decode_steps} decode steps + {sched.prefill_chunks} "
+            f"prefill {'chunks' if sched.paged else 'prompts'}; launches "
+            f"{counts} (replays counted); programs {progs}, {res['graphs']} "
+            f"graphs built in {res['build_s']:.2f} s")
+    paged, contig = runs["paged"]["scheduler"], runs["contiguous"]["scheduler"]
+    greedy = tokens_of(runs["paged"]["completions"])
+    reqs = [dataclasses.replace(r, temperature=t, seed=s) for r, t, s in
+            zip(runs["paged"]["requests"], SAMPLED_TEMPS, SAMPLED_SEEDS)]
+    progs = {k: s.step_programs() for k, s in (("paged", paged),
+                                               ("contiguous", contig))}
+    again = timed_run(paged, runs["paged"]["requests"])
+    sampled = {"paged": timed_run(paged, reqs),
+               "contiguous": timed_run(contig, reqs)}
+    eager = {"paged": timed_run(like(paged, cuda_graphs=False), reqs),
+             "contiguous": timed_run(like(contig, cuda_graphs=False), reqs)}
+    t1 = time.perf_counter()
+    solo = {r.rid: oracle_completion(paged.engine, r) for r in reqs}
+    solo_s = time.perf_counter() - t1
+    rule = {k: advance_once(s) for k, s in (("paged", paged),
+                                            ("contiguous", contig))}
+    bad = {k: nonfinite(s) for k, s in (("paged", paged),
+                                        ("contiguous", contig))}
+    toks = sampled["paged"]["tokens"]
+    gates = {
+        "each completion equals its request alone through generate_loop "
+        "(cuda backend), paged": toks == solo,
+        "and contiguous": sampled["contiguous"]["tokens"] == solo,
+        "the greedy CLI runs give the same tokens paged and contiguous":
+            greedy == tokens_of(runs["contiguous"]["completions"]),
+        "a second run builds nothing and gives the same tokens":
+            again["tokens"] == greedy
+            and paged.step_programs() == progs["paged"],
+        "one decode program for greedy and sampled rows, nothing new "
+        "built": all(s.step_programs() == progs[k] and progs[k]["decode"]
+                     == 1 for k, s in (("paged", paged),
+                                       ("contiguous", contig))),
+        "graphs and eager give the same tokens and launches": all(
+            eager[k]["tokens"] == sampled[k]["tokens"]
+            and eager[k]["launches"] == sampled[k]["launches"]
+            for k in sampled),
+        "a recurrent step built and called once leaves one eager call's "
+        "state (paged chunk and decode, contiguous prefill and decode)":
+            all(rule.values()),
+        "states and logits finite": not bad["paged"]
+            and not bad["contiguous"],
+    }
+    for run in (again, *sampled.values(), *eager.values()):
+        launch_gate(mode, paged.cfg, run["steps"], run["chunks"],
+                    run["launches"], paged=False)
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"xlstm {mode}: 6 requests at temperatures {list(SAMPLED_TEMPS)}, "
+        f"seeds {list(SAMPLED_SEEDS)}; paged {sampled['paged']['steps']} "
+        f"decode steps + {sampled['paged']['chunks']} chunks, launches "
+        f"{sampled['paged']['launches']}; solo runs {solo_s:.1f} s; first "
+        f"differences from the solo runs paged "
+        f"{first_difference(toks, solo)}, contiguous "
+        f"{first_difference(sampled['contiguous']['tokens'], solo)}; "
+        f"non-finite {bad}; gates failed: {failed}")
+    for k in sampled:
+        log(f"xlstm {mode} {k}: decode_ms_per_step graphs / eager "
+            f"{sampled[k]['decode_ms']:.3f} / {eager[k]['decode_ms']:.3f}, "
+            f"tokens_per_s {sampled[k]['tokens_per_s']:.2f} / "
+            f"{eager[k]['tokens_per_s']:.2f}, peak_mem_GB "
+            f"{sampled[k]['peak_gb']:.2f} on {smi}")
+    if failed:
+        raise AssertionError(f"xlstm {mode}: {failed}")
+    backend_parity(paged)
+    xlstm_measure(paged, contig, smi)
+    del runs, paged, contig, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in static_phase(mode, smi, XLSTM_STATIC_ARGS,
+                             temps=(0.0,)).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"xlstm {mode}: phase in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def xlstm_phase(smi: str) -> dict[str, int]:
+    """Phase 10; returns each kernel's launches on its main paths."""
+    launches: dict[str, int] = {}
+    for mode in ("pum", "int8"):
+        for k, v in xlstm_run(mode, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def xlstm_rows(cases: list[dict]) -> dict[str, list[dict]]:
+    """K1's and K2's rows at xLSTM-350M's shapes, for the kernels line."""
+    return {name: [c[kern] for c in cases]
+            for name, kern in (("bitslice_mvm_scaled", "K1"),
+                               ("bitslice_mvm", "K2"))}
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -1989,8 +2362,8 @@ OFF_MAIN_PATH = {"gf2_mvm"}
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["kernels", "cnn", "contiguous"],
-                    default=None)
+    ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
+                                       "xlstm"], default=None)
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -2037,8 +2410,18 @@ def main(argv=None) -> int:
         log(f"phase 9 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "xlstm":
+        cases = xlstm_rows(check_xlstm_mvm(dev))
+        xlstm_launches = xlstm_phase(smi)
+        log(json.dumps({"kernels": {"launches": xlstm_launches,
+                                    "xlstm_shapes": cases}}))
+        log(f"phase 10 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     # -- 3. kernels
-    rows = check_mvm(dev, gpu_name)
+    rows = check_mvm(dev)
+    for name, cases in xlstm_rows(check_xlstm_mvm(dev)).items():
+        rows[name]["xlstm_shapes"] = cases
     rows["paged_attention"] = check_attention(dev, gpu_name)
     rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
@@ -2065,6 +2448,9 @@ def main(argv=None) -> int:
     for name, row in prefill_rows.items():
         rows[name]["prefill_shape"] = row
     log(f"phase 9 done at {time.perf_counter() - start:.1f} s")
+    for k, v in xlstm_phase(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 10 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -11,8 +11,12 @@ The input is the JAX tree with every array already converted to numpy
     leaves carry a leading ``[n_groups]`` axis.
 
 The port keeps one param dict per layer, so the bridge unstacks the
-groups: layer ``g * period + j`` is group ``g`` of ``blocks[j]``.
-Packed planes keep the JAX ``[S, K, N]`` layout.
+groups: layer ``g * period + j`` is group ``g`` of ``blocks[j]``.  That
+is the layout of any period: an xLSTM stack's (period 2 in the reduced
+configs, 4 at full width, 5 where ``num_layers=10`` makes it ragged)
+comes across with its mixer params, bias leaves and packed ``[d, 4]``
+gates as a dense one's.  Packed planes keep the JAX ``[S, K, N]``
+layout.
 """
 from __future__ import annotations
 

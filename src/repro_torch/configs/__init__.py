@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get(name)`` returns the full
 published config, ``get_reduced(name)`` a same-family miniature for CPU
-tests.  This slice serves the dense family only, so it carries the one
-dense config it runs at full width (Qwen2.5-3B)."""
+tests.  It carries the configs the port serves at full width: the
+dense Qwen2.5-3B and the recurrent xLSTM-350M (mLSTM and sLSTM
+mixers)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ from repro_torch.config import ModelConfig
 
 ARCH_IDS = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 

@@ -171,6 +171,17 @@ def _launch(x2: torch.Tensor, planes: torch.Tensor,
     return out
 
 
+def _padded(planes: torch.Tensor) -> torch.Tensor:
+    """The planes with N padded by zero columns up to a multiple of VEC,
+    as the kernel reads N in 16-byte vectors (the JAX package pads the
+    planes to its block in every entry, ``ops._run``); the caller cuts
+    the output back to N.  A no-op where N is a multiple already."""
+    pad = -planes.shape[2] % VEC
+    if pad:
+        planes = torch.nn.functional.pad(planes, (0, pad))
+    return planes.contiguous()
+
+
 def _rows(x_q: torch.Tensor, k: int) -> torch.Tensor:
     x2 = x_q.reshape(-1, k)
     if x2.device.type == "cuda":
@@ -201,10 +212,7 @@ def bitslice_mvm(x_q: torch.Tensor, w_q: torch.Tensor, *,
     if b == KernelBackend.TORCH:
         out = bitslice_mvm_ref(x2, planes, bits_per_slice=bits_per_slice)
     else:
-        pad = -n % VEC
-        if pad:
-            planes = torch.nn.functional.pad(planes, (0, pad))
-        out = _launch(x2, planes.contiguous(), None, bits_per_slice)[:, :n]
+        out = _launch(x2, _padded(planes), None, bits_per_slice)[:, :n]
     return out.reshape(x_q.shape[:-1] + (n,))
 
 
@@ -216,14 +224,15 @@ def bitslice_mvm_planes(x_q: torch.Tensor, planes: torch.Tensor, *,
 
     x_q: [..., K] int (int8 range); planes: [S, K, N] int8 differential
     planes (``PackedLinear.planes``, or ``wq[None]`` for int8).
-    Returns [..., N] int32."""
+    Returns [..., N] int32.  On the kernel, N is padded as in
+    :func:`bitslice_mvm` (mLSTM's gates have N = heads = 4)."""
     k, n = planes.shape[1], planes.shape[2]
     b = registry.resolve_backend(x_q, backend, kernel=KERNEL)
     x2 = _rows(x_q, k)
     if b == KernelBackend.TORCH:
         out = bitslice_mvm_ref(x2, planes, bits_per_slice=bits_per_slice)
     else:
-        out = _launch(x2, planes, None, bits_per_slice)
+        out = _launch(x2, _padded(planes), None, bits_per_slice)[:, :n]
     return out.reshape(x_q.shape[:-1] + (n,))
 
 
@@ -237,7 +246,8 @@ def bitslice_mvm_planes_scaled(x_q: torch.Tensor, planes: torch.Tensor,
 
     x_q: [..., K] int; planes: [S, K, N] int8; row_scale: [..., 1] f32.
     Returns [..., N] f32 == ``(x_q @ w).to(f32) * row_scale``, the
-    int32 accumulator never leaving the chip."""
+    int32 accumulator never leaving the chip.  N is padded on the kernel
+    as in :func:`bitslice_mvm_planes`."""
     k, n = planes.shape[1], planes.shape[2]
     b = registry.resolve_backend(x_q, backend, kernel=KERNEL)
     x2 = _rows(x_q, k)
@@ -249,6 +259,6 @@ def bitslice_mvm_planes_scaled(x_q: torch.Tensor, planes: torch.Tensor,
         out = bitslice_mvm_scaled_ref(x2, planes, scale2,
                                       bits_per_slice=bits_per_slice)
     else:
-        out = _launch(x2, planes, scale2.reshape(-1).contiguous(),
-                      bits_per_slice)
+        out = _launch(x2, _padded(planes), scale2.reshape(-1).contiguous(),
+                      bits_per_slice)[:, :n]
     return out.reshape(x_q.shape[:-1] + (n,))

@@ -5,6 +5,10 @@ continuous-batching scheduler over a synthetic trace, or a static batch.
 --requests 6 --min-prompt-len 20 --prompt-len 64 --gen 16 --pum-mode pum
 --kv-block-size 16 --chunked-prefill``
 
+``--arch xlstm-350m`` serves the recurrent xLSTM stack the same way; it
+has no KV to page, so its requests take 0 blocks of the pool and only
+its prompts' chunking follows ``--kv-block-size``.
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through
@@ -36,7 +40,7 @@ from repro_torch.config import PUMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import (ContinuousBatchingScheduler, ServeEngine,
-                               synthetic_workload)
+                               kv_pool, synthetic_workload)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -127,9 +131,10 @@ def main(argv: list[str] | None = None) -> dict:
     decode_ms = 1e3 * sched.decode_seconds / max(1, sched.decode_steps)
     graphs, build_s = sched.graphs_captured()
     chunked = ", chunked" if args.chunked_prefill else ""
-    kv = (f"paged(block={args.kv_block_size}, "
-          f"blocks={sched.num_kv_blocks}{chunked})" if sched.paged
-          else f"contiguous(max_len={max_len})")
+    blocks = (f"blocks={sched.num_kv_blocks}" if kv_pool.has_kv_cache(cfg)
+              else "no KV: 0 blocks a request")
+    kv = (f"paged(block={args.kv_block_size}, {blocks}{chunked})"
+          if sched.paged else f"contiguous(max_len={max_len})")
     print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
           f"mode={args.pum_mode} slots={args.batch_slots} kv={kv} "
           f"device={dev_name} setup_s={setup_s:.2f}")

@@ -17,7 +17,10 @@ static buffer on the device, filled from one pinned host staging tensor
 by a single non-blocking copy; the step's integer outputs come back packed
 in one int32 tensor, by a single copy.  Anything else the step returns
 (its logits) stays on the device, in ``CompiledStep.aux``, overwritten
-by the next call.
+by the next call of the same step.  A graph copies it, as its last
+launches, into buffers of its own allocated outside the graphs' memory
+pool: the graphs share that pool, and another step's replay may write
+its temporaries where this step's outputs were captured.
 
 On the CPU the same object runs the function eagerly on the same static
 buffers: a CPU has no graphs.  On the card, ``graphs=False`` does the
@@ -55,23 +58,34 @@ class CompiledStep:
     (``launches``) and added to ``registry.LAUNCHES`` at each replay; the
     warm-up's count nowhere.
 
-    Every step must be idempotent on its inputs, because the warm-up
-    runs it once on the first call's inputs and the replay that follows
-    runs it again: two runs on the same inputs must leave the same state
-    as one.  A serving step holds to this by writing only the cells of
-    its inputs' rows and positions, with values its inputs fix (zero
-    inputs write only the paged pool's trash block), and by returning
-    what it advances (a token, a key, a cache index) rather than
-    updating its own inputs; :meth:`stage_from` hands those outputs to
-    the next call.  A step that counts or accumulates in place (a
-    refcount, a rollback) breaks this rule and would apply twice.
-    ``tests/test_torch_cuda.py`` holds each step kind to it.
+    The warm-up runs the step once on the first call's inputs and the
+    replay that follows runs it again, so a call must leave what one run
+    leaves.  A step holds to this in one of two ways:
+
+    * it is idempotent on its inputs: it writes only the cells of its
+      inputs' rows and positions, with values its inputs fix (zero
+      inputs write only the paged pool's trash block), and returns what
+      it advances (a token, a key, a cache index) rather than updating
+      its own inputs; :meth:`stage_from` hands those outputs to the next
+      call.  K/V writes are so;
+    * or it names the tensors it advances in place in ``advances``
+      (a recurrent state: ``c <- f c + i v k^T`` done twice advances it
+      twice), and :meth:`build` copies them before the warm-up and
+      back after it, so the first replay advances them once.  This
+      costs one copy at build and nothing a replay; the reference needs
+      neither, its update being functional and its state donated.
+
+    A step that counts or accumulates in place anything it does not
+    name (a refcount, a rollback) would apply twice.
+    ``tests/test_torch_cuda.py`` holds each step kind to the rule.
     """
 
     def __init__(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
                  device: torch.device, *, graphs: bool = True, pool=None,
-                 stream: torch.cuda.Stream | None = None):
+                 stream: torch.cuda.Stream | None = None,
+                 advances: Sequence[torch.Tensor] = ()):
         self.fn = fn
+        self.advances = list(advances)
         self.device = device
         self.graphs = graphs and device.type == "cuda"
         self._pool = pool
@@ -98,10 +112,15 @@ class CompiledStep:
             return
         t0 = time.perf_counter()
         side, cur = self._stream, torch.cuda.current_stream(self.device)
+        before = [t.clone() for t in self.advances]
         side.wait_stream(cur)
         with torch.cuda.stream(side), registry.recording():
-            self.fn(*self.inputs)
+            _, *warm = self.fn(*self.inputs)
         cur.wait_stream(side)
+        for t, b in zip(self.advances, before):
+            t.copy_(b)
+        keep = [torch.empty_like(a) for a in warm]
+        del before, warm
         graph = torch.cuda.CUDAGraph()
         # no finalizer may run inside the capture: a dead object of an
         # earlier scheduler (a graph, a pinned staging buffer) collected
@@ -112,10 +131,12 @@ class CompiledStep:
             with registry.recording() as counts, \
                     torch.cuda.graph(graph, pool=self._pool, stream=side):
                 self._ints, *aux = self.fn(*self.inputs)
+                for k, a in zip(keep, aux):
+                    k.copy_(a)
         finally:
             if collecting:
                 gc.enable()
-        self.aux = tuple(aux)
+        self.aux = tuple(keep)
         self.graph = graph
         self.launches = counts
         torch.cuda.synchronize(self.device)

@@ -1,4 +1,6 @@
-"""Serving engine: prefill + decode over a contiguous KV cache.
+"""Serving engine: prefill + decode over contiguous decode states (a KV
+cache per attention layer, per-row recurrent state per mLSTM or sLSTM
+layer).
 
 ``ServeEngine.generate`` runs a static batch as two compiled programs
 (``serve.compiled``), on the card two CUDA graphs, built once per batch,
@@ -43,18 +45,20 @@ class RequestTooLarge(ValueError):
 
 def make_decode_step(cfg: ModelConfig, kv_len: int | None = None):
     """(params, states, token [B,1], cache_index, block_table=None,
-    write_table=None) -> (logits [B,1,V], states).
+    write_table=None, commit=True) -> (logits [B,1,V], states).
 
     ``cache_index`` is a scalar for lockstep decode or [B] for slot-wise
     decode; with a paged state pass ``block_table`` and build the step
-    with ``kv_len`` = the engine window."""
+    with ``kv_len`` = the engine window.  ``commit=False`` leaves the
+    recurrent states as they were and returns their successors
+    (``lm.forward``)."""
 
     def decode_step(params, states, token, cache_index, *,
-                    block_table=None, write_table=None):
+                    block_table=None, write_table=None, commit=True):
         return lm.forward(params, token, cfg, states=states,
                           cache_index=cache_index, last_only=True,
                           block_table=block_table, kv_len=kv_len,
-                          write_table=write_table)
+                          write_table=write_table, commit=commit)
 
     return decode_step
 
@@ -139,13 +143,15 @@ class ServeEngine:
                                        list[dict]]] = {}
 
     def compile_step(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
-                     *values) -> CompiledStep:
+                     *values, advances: Sequence[torch.Tensor] = ()
+                     ) -> CompiledStep:
         """``fn`` built as a :class:`CompiledStep` on the engine's device,
         graph pool and capture stream, warmed up on ``values`` (zeros if
-        none are given)."""
+        none are given); ``advances`` are the tensors it advances in
+        place (``CompiledStep``)."""
         prog = CompiledStep(fn, shapes, self.device, graphs=self.cuda_graphs,
                             pool=self._graph_pool,
-                            stream=self._capture_stream)
+                            stream=self._capture_stream, advances=advances)
         if values:
             prog.stage(*values)
         prog.build()
@@ -198,8 +204,10 @@ class ServeEngine:
 
         Both return their outputs packed as the decode step's inputs, so
         a replay's outputs are the next replay's inputs: the schedule of
-        ``generate_loop``, op for op.  Prefill zeroes the window first,
-        so each program writes only what its inputs fix."""
+        ``generate_loop``, op for op.  Prefill sets the window back to
+        its init values first (KV zero, recurrent rows fresh), so it
+        writes only what its inputs fix; decode advances the window's
+        recurrent rows, which it names (``CompiledStep``)."""
         cfg, params, dev = self.cfg, self.params, self.device
         states = lm.init_state(cfg, b, self.max_len, dev)
 
@@ -209,9 +217,7 @@ class ServeEngine:
 
         def prefill(prompt, key):
             with self.backend_ctx():
-                for cache in states:
-                    for t in cache.values():
-                        t.zero_()
+                lm.reset_states(cfg, states)
                 zero = torch.zeros((), dtype=torch.int32, device=dev)
                 logits, _ = lm.forward(params, prompt, cfg, states=states,
                                        cache_index=zero, last_only=True)
@@ -228,7 +234,9 @@ class ServeEngine:
         graphs = dict(device=dev, graphs=self.cuda_graphs,
                       pool=self._graph_pool, stream=self._capture_stream)
         return (CompiledStep(prefill, [(b, s), (2,)], **graphs),
-                CompiledStep(decode, [(b, 1), (2,), ()], **graphs), states)
+                CompiledStep(decode, [(b, 1), (2,), ()],
+                             advances=lm.recurrent_tensors(cfg, states),
+                             **graphs), states)
 
     @torch.inference_mode()
     def generate(self, prompt: torch.Tensor, steps: int,

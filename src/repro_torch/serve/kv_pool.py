@@ -13,6 +13,11 @@ its tokens touch, mapped through a per-slot *block table*.
   ``blocks_needed(...)`` blocks for its whole lifetime (up-front
   allocation: it never runs out mid-decode).
 
+Recurrent layers (mLSTM, sLSTM) keep per-slot rows beside the pools
+(``lm.init_paged_state``); the helpers at the end of this module view,
+merge and freeze those rows, in the port's per-layer form of the
+reference's state-tree helpers.  A pure-recurrent stack pages no KV.
+
 Prefix caching (shared, refcounted blocks and copy-on-write) is not
 ported yet; the allocator keeps the JAX package's refcounts so it can
 come without changing this interface.
@@ -21,6 +26,12 @@ from __future__ import annotations
 
 from collections import deque
 from collections.abc import Sequence
+from typing import Any
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import transformer
 
 TRASH_BLOCK = 0
 
@@ -121,3 +132,61 @@ class BlockAllocator:
                 del self._ref[i]
                 self._free.append(i)
 
+
+
+# ---------------------------------------------------------------------------
+# Per-layer state helpers: paged pools are shared (no slot axis);
+# recurrent states keep their per-slot rows (axis 0)
+# ---------------------------------------------------------------------------
+
+def is_paged_cache(state: Any) -> bool:
+    return isinstance(state, dict) and "k_pool" in state
+
+
+def has_kv_cache(cfg: ModelConfig) -> bool:
+    """Whether any layer carries a KV cache (a pure-recurrent stack,
+    xLSTM, pages nothing but still streams its prompts in chunks)."""
+    return any(transformer.mixer_kind(cfg, j) == "attn"
+               for j in range(transformer.period(cfg)))
+
+
+def has_recurrent_state(cfg: ModelConfig) -> bool:
+    """Whether any layer carries per-slot recurrent state, which a
+    reused slot must start afresh."""
+    return any(transformer.mixer_kind(cfg, j) != "attn"
+               for j in range(transformer.period(cfg)))
+
+
+def _recurrent(state: Any) -> bool:
+    return bool(state) and not is_paged_cache(state)
+
+
+def slot_states_view(states: list[Any], slot: torch.Tensor) -> list[Any]:
+    """A batch-1 copy of the recurrent rows of ``slot`` ([1] int64 on
+    the device) for a prefill chunk; shared paged pools pass through
+    whole."""
+    return [{k: t.index_select(0, slot) for k, t in st.items()}
+            if _recurrent(st) else st for st in states]
+
+
+def slot_states_merge(states: list[Any], one: list[Any],
+                      slot: torch.Tensor) -> None:
+    """Inverse of :func:`slot_states_view`: write the advanced batch-1
+    rows back at ``slot``, in place."""
+    for st, st1 in zip(states, one):
+        if _recurrent(st):
+            for k, t in st.items():
+                t.index_copy_(0, slot, st1[k].to(t.dtype))
+
+
+def freeze_inactive_rows(states: list[Any], new_states: list[Any],
+                         active: torch.Tensor) -> None:
+    """Write the step's new recurrent states (``lm.forward(...,
+    commit=False)``) into ``states`` in place for the rows of ``active``
+    ([B] bool) only.  The slot-wise decode step runs every row, slots
+    whose prompt is still streaming in chunk by chunk included; their
+    KV writes go to the trash block, but a recurrent row moved between
+    two chunks would corrupt the prompt state the chunks accumulate."""
+    for st, new in zip(states, new_states):
+        if _recurrent(st):
+            transformer.commit_state(st, new, rows=active)

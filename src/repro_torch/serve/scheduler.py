@@ -2,8 +2,9 @@
 windows.
 
 A fixed pool of ``num_slots`` decode slots shares one prepacked
-parameter set and the KV storage of every layer, in one of the
-reference's two layouts:
+parameter set and the decode state of every layer (KV storage for
+attention, per-slot rows for the recurrent mLSTM and sLSTM), in one of
+the reference's two layouts:
 
 * **paged** (``kv_block_size > 0``): one pool of KV blocks per layer
   (``serve.kv_pool``).  Admission claims a free slot and the request's
@@ -14,21 +15,28 @@ reference's two layouts:
   ``chunked_prefill``, else the whole prompt) through a batch-1 step
   that writes K/V straight into the pool through the slot's block-table
   row; the slot whose last chunk lands draws its first token (inside
-  the chunk step, from ``prng_key(seed)``) and joins decode.
+  the chunk step, from ``prng_key(seed)``) and joins decode.  A
+  recurrent layer's chunk runs on a batch-1 copy of the slot's rows,
+  which the step writes back; admission resets the slot's rows to a
+  fresh state first.  A pure-recurrent stack (xLSTM) pages no KV: its
+  requests take 0 blocks.
 * **contiguous** (``kv_block_size = 0``, the reference's default): a
   ``[num_slots, max_len]`` window per layer.  Admission prefills the
   whole prompt at once, batch 1, into a window of the scheduler's own,
   draws token 0 and splices that window into the slot's row: the
-  prompt's K/V, then zeros up to ``max_len``.  A request that finishes
-  at its first token (EOS, or ``max_tokens == 1``) completes at
-  admission and leaves the slot free.
+  prompt's K/V, then zeros up to ``max_len``, and the recurrent rows the
+  prompt left (the window starts each prompt from a fresh state).  A
+  request that finishes at its first token (EOS, or ``max_tokens ==
+  1``) completes at admission and leaves the slot free.
 
 Then ONE slot-wise decode step runs over all slots: a per-slot
 ``cache_index`` vector and an active mask (paged: and a block table
-masked so that rows not decoding write to the trash block; contiguous:
-every row writes at its own index, the free rows into windows the next
-admission overwrites).  Every row folds its key with ``gen - 1`` and
-draws at its own temperature; rows at temperature 0 take the argmax.
+masked so that rows not decoding write to the trash block, and the
+recurrent rows of slots not decoding kept as they were; contiguous:
+every row writes at its own index and advances its recurrent rows, the
+free rows into windows the next admission overwrites).  Every row folds
+its key with ``gen - 1`` and draws at its own temperature; rows at
+temperature 0 take the argmax.
 Greedy and sampled rows share the one step: there is no second decode
 program.
 
@@ -37,7 +45,10 @@ step is the replay of one CUDA graph, and each chunk (paged) or each
 admission's prefill (contiguous) the replay of one graph per distinct
 chunk or prompt length, the slot an input of the step; each is built
 once for the scheduler's lifetime, as the reference jits
-``make_slot_step`` once and its prefill once per length.
+``make_slot_step`` once and its prefill once per length.  The decode
+step and the paged chunk advance recurrent rows in place, which they
+name to ``CompiledStep`` so that its warm-up does not advance them a
+second time.
 :meth:`ContinuousBatchingScheduler.step_programs` counts the builds.
 
 Oracle equivalence: each request's tokens equal those of the request
@@ -46,19 +57,24 @@ per input row, and every row attends over the engine's whole window
 (the paged view is cropped to it), so a row's numerics never depend on
 its co-tenants.  The contiguous steps attend through the solo loop's
 own composition, so there it holds bit for bit on every backend, the
-card's ``cuda`` backend too.  The paged steps hold it wherever both run
-the same arithmetic: on the CPU, and on the card's ``torch`` backend.
-On the ``cuda`` backend they attend through the paged-attention
-kernel, which sums in another order than the solo loop's plain
-attention, so the two can part at near-ties; a request served alone
-through the scheduler still gives its tokens in any batch.
+card's ``cuda`` backend too.  The recurrences sum a head's lanes in a
+fixed tree whatever the batch (``models/xlstm.py``), and a stack with
+no attention runs no paged-attention kernel, so an xLSTM request's
+tokens equal its solo tokens in both layouts on every backend.  The
+paged steps hold it wherever both run the same arithmetic: on the CPU,
+and on the card's ``torch`` backend.  On the ``cuda`` backend they
+attend through the paged-attention kernel, which sums in another order
+than the solo loop's plain attention, so the two can part at
+near-ties; a request served alone through the scheduler still gives
+its tokens in any batch.
 
-This slice serves the dense family at any temperature, each request
-with its own seed, and its draws are the reference's (``serve.prng``
-reproduces its threefry keys).  Prefix caching, speculative decoding,
-tensor parallelism and fault-injection hooks of the JAX package are not
-ported yet; their arguments raise ``NotImplementedError`` (or, with the
-contiguous layout, the reference's ``ValueError``).
+This slice serves the dense family and the xLSTM family (mLSTM and
+sLSTM mixers) at any temperature, each request with its own seed, and
+its draws are the reference's (``serve.prng`` reproduces its threefry
+keys).  Prefix caching, speculative decoding, tensor parallelism and
+fault-injection hooks of the JAX package are not ported yet; their
+arguments raise ``NotImplementedError`` (or, with the contiguous
+layout, the reference's ``ValueError``).
 """
 from __future__ import annotations
 
@@ -152,7 +168,9 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
     ``kv_len`` (the engine window) the states are the paged pool and the
     step takes a block table, which it masks so that rows not decoding
     write to the trash block; without, they are the contiguous windows,
-    where every row writes at its own index.  Each row's key is folded
+    where every row writes at its own index.  Paged, the recurrent rows
+    of rows not decoding keep their values (the reference's
+    ``freeze_inactive_rows``).  Each row's key is folded
     with its local step number (``gen - 1``, which wraps to 0xFFFFFFFF
     for an empty slot), as ``generate_loop`` folds with ``i``, and the
     folded keys come back for the host to keep.  The logits ride along
@@ -165,9 +183,14 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
         step_keys = prng.fold_in(keys, gen - 1)
         if paged:
             block_table = _mask_block_table(block_table, active)
-        logits, states = decode(params, states, cur_tok, cache_index,
-                                block_table=block_table,
-                                write_table=block_table)
+        logits, new_states = decode(params, states, cur_tok, cache_index,
+                                    block_table=block_table,
+                                    write_table=block_table,
+                                    commit=not paged)
+        if paged:
+            # a mid-prefill row's recurrent state must not move between
+            # its chunks (its KV writes already go to the trash block)
+            kv_pool.freeze_inactive_rows(states, new_states, active)
         tok = sample_token(logits, step_keys, temp)[:, 0]
         gen = gen + active.to(gen.dtype)
         done = active & ((tok == eos) | (gen >= max_toks))
@@ -235,6 +258,10 @@ class ContinuousBatchingScheduler:
         self.max_len = max_len
         self.paged = kv_block_size > 0
         self.chunked_prefill = chunked_prefill
+        # pure-recurrent stacks page no KV, but still stream their
+        # prompts in chunks through their slot's rows
+        self._has_kv = kv_pool.has_kv_cache(cfg)
+        self._has_recurrent = kv_pool.has_recurrent_state(cfg)
         if self.paged:
             self.block_size = kv_block_size
             self.table_width = kv_pool.table_width(max_len, kv_block_size)
@@ -261,12 +288,12 @@ class ContinuousBatchingScheduler:
 
     def _reset(self) -> None:
         b = self.num_slots
-        # the captured graphs hold the pools' and windows' addresses, so
-        # they are zeroed in place, never reallocated: every graph stays
-        # valid across a reset and none replays against freed memory
-        for st in self.states + self._one:
-            for t in st.values():
-                t.zero_()
+        # the captured graphs hold the states' addresses, so they are set
+        # back to their init values in place, never reallocated: every
+        # graph stays valid across a reset and none replays against
+        # freed memory
+        lm.reset_states(self.cfg, self.states)
+        lm.reset_states(self.cfg, self._one)
         if self.paged:
             self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
             self._block_table = np.zeros((b, self.table_width), np.int32)
@@ -296,6 +323,8 @@ class ContinuousBatchingScheduler:
     # -- admission ---------------------------------------------------------
 
     def _blocks_for(self, req: Request) -> int:
+        if not self._has_kv:
+            return 0
         return kv_pool.blocks_needed(len(req.prompt), req.max_tokens,
                                      self.block_size)
 
@@ -347,6 +376,10 @@ class ContinuousBatchingScheduler:
         self._slot_blocks[slot] = ids
         self._block_table[slot, :] = 0
         self._block_table[slot, :len(ids)] = ids
+        if self._has_recurrent:
+            # the chunks accumulate the prompt's state in the slot's
+            # rows: scrub the retired occupant's state first
+            lm.reset_states(self.cfg, self.states, row=slot)
         prompt = [int(t) for t in req.prompt]
         self._prefills[slot] = _PrefillJob(req=req, prompt=prompt)
         self._slot_req[slot] = req
@@ -408,13 +441,17 @@ class ContinuousBatchingScheduler:
         position 0 of every row."""
         prog = self._programs.get(key)
         if prog is None:
+            advances = lm.recurrent_tensors(self.cfg, self.states)
             if key == "decode":
                 fn, shapes = self._decode_fn()
             elif self.paged:
                 fn, shapes = self._chunk_fn(key)
             else:
+                # the admission prefill starts its window afresh
                 fn, shapes = self._prefill_fn(key)
-            prog = self.engine.compile_step(fn, shapes, *values)
+                advances = []
+            prog = self.engine.compile_step(fn, shapes, *values,
+                                            advances=advances)
             self._programs[key] = prog
         return prog
 
@@ -452,17 +489,16 @@ class ContinuousBatchingScheduler:
         (tokens [1,length], slot [1], key [1,2], temp [1] (f32 bits)) ->
         (token 0, drawn with ``key`` at ``temp`` [1, 1]; logits [1,1,V]).
 
-        The batch-1 window is zeroed past the prompt, the prompt
-        prefilled into it from position 0 (the reference's fresh
-        ``init_state``), and the whole window copied into row ``slot`` of
-        every layer's shared window (its ``_insert``)."""
+        The batch-1 window is set back to its init values (K/V zeroed
+        past the prompt, recurrent rows fresh), the prompt prefilled into
+        it from position 0 (the reference's fresh ``init_state``), and
+        the whole window copied into row ``slot`` of every layer's shared
+        state (its ``_insert``)."""
         params, states, one, cfg = (self.params, self.states, self._one,
                                     self.cfg)
 
         def prefill(tokens, slot, key, temp):
-            for st in one:
-                for t in st.values():
-                    t[:, length:].zero_()
+            lm.reset_states(cfg, one, kv_from=length)
             start = torch.zeros((), dtype=torch.int32, device=tokens.device)
             with self.engine.backend_ctx():
                 logits, _ = lm.forward(params, tokens, cfg, states=one,
@@ -479,23 +515,28 @@ class ContinuousBatchingScheduler:
     def _chunk_fn(self, length: int):
         """One chunk of ``length`` prompt tokens of one slot against the
         shared pools: (tokens [1,length], start [1], table_row [1,W],
-        key [1,2], temp [1] (f32 bits)) -> (the next token drawn with
-        ``key`` at ``temp`` [1, 1]; logits [1,1,V]).  Only the last
-        chunk's token is kept."""
+        slot [1], key [1,2], temp [1] (f32 bits)) -> (the next token
+        drawn with ``key`` at ``temp`` [1, 1]; logits [1,1,V]).  Only the
+        last chunk's token is kept.  Recurrent layers run on a batch-1
+        copy of the slot's rows, written back after the chunk (the
+        reference's slot view and merge)."""
         params, states, cfg, max_len = (self.params, self.states, self.cfg,
                                         self.max_len)
 
-        def chunk(tokens, start, table_row, key, temp):
+        def chunk(tokens, start, table_row, slot, key, temp):
+            row = slot.to(torch.int64)
+            one = kv_pool.slot_states_view(states, row)
             with self.engine.backend_ctx():
                 logits, _ = lm.forward(
-                    params, tokens, cfg, states=states, cache_index=start,
+                    params, tokens, cfg, states=one, cache_index=start,
                     block_table=table_row, last_only=True, kv_len=max_len,
                     write_table=table_row)
+            kv_pool.slot_states_merge(states, one, row)
             return sample_token(logits, key, temp.view(torch.float32)), \
                 logits
 
-        return chunk, [(1, length), (1,), (1, self.table_width), (1, 2),
-                       (1,)]
+        return chunk, [(1, length), (1,), (1, self.table_width), (1,),
+                       (1, 2), (1,)]
 
     def step_programs(self) -> dict:
         """How many times each step was built: the counterpart of the
@@ -531,8 +572,8 @@ class ContinuousBatchingScheduler:
             key = prng.prng_key(req.seed).numpy()
             temp = np.float32(req.temperature)
             tok0 = int(self._dispatch(c, pf.prompt[pf.pos:pf.pos + c],
-                                      pf.pos, self._block_table[slot], key,
-                                      temp.view(np.int32))[0, 0])
+                                      pf.pos, self._block_table[slot], slot,
+                                      key, temp.view(np.int32))[0, 0])
             pf.pos += c
             dispatches += 1
             self.prefill_chunks += 1

@@ -15,6 +15,10 @@ scheduler (``kv_block_size=0``, JAX at ``kernel_backend="xla"``) and
     scheduler's bit for bit;
   * ``generate`` equals ``generate_loop`` bit for bit, and JAX's
     ``generate`` under the margin rule.
+
+The scheduler and engine tests run for the dense and the xLSTM family
+(the reference's ``FAMILIES``): an xLSTM slot's row holds recurrent
+state, which its admission window starts afresh and splices in whole.
 """
 import jax
 import jax.numpy as jnp
@@ -46,7 +50,10 @@ CHUNK_TOL = 1e-5
 # rest differs by f32 summation order; bf16 mode's float projections can
 # flip a cached K/V cell's bf16 rounding (tests/test_torch_scheduler.py)
 LOGIT_TOL = {"pum": 1e-4, "int8": 1e-4, "bf16": 2e-3}
-KW = dict(dtype="float32", qkv_bias=True, tie_embeddings=True)
+KW = dict(dtype="float32")
+FAMILIES = {"dense": dict(qkv_bias=True, tie_embeddings=True),
+            "xlstm": dict(xlstm_slstm_every=2)}
+MODES = ["pum", "int8", "bf16"]
 SCHED = dict(num_slots=2, max_len=32, kv_block_size=0)
 # the reference's test_scheduler_matches_oracle trace: staggered
 # arrivals, more requests than slots, greedy and sampled rows; the last
@@ -126,7 +133,7 @@ def test_long_prompt_raises_on_the_paged_branch_only(monkeypatch):
     with the reference's message, the contiguous branch asks a scalar
     cache index of it."""
     monkeypatch.setattr(tattn, "CHUNK_Q", 4)
-    cfg = tsmall(**KW)
+    cfg = tsmall(**KW, **FAMILIES["dense"])
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     toks = torch.arange(1, 10, dtype=torch.int32)[None]
@@ -149,15 +156,18 @@ def test_long_prompt_raises_on_the_paged_branch_only(monkeypatch):
 # The contiguous scheduler
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=["pum", "int8", "bf16"])
+@pytest.fixture(scope="module",
+                params=[(f, m) for f in FAMILIES for m in MODES],
+                ids=[f"{f}-{m}" for f in FAMILIES for m in MODES])
 def ref(request):
     """JAX's contiguous scheduler on each trace (its sampled rows in the
     partitionable threefry layout) with its scores along its own
-    tokens; the port's params carried across by the bridge."""
-    mode = request.param
-    jcfg = jsmall(pum=JPUM(mode=mode), **KW)
+    tokens, per family and mode; the port's params carried across by
+    the bridge."""
+    family, mode = request.param
+    jcfg = jsmall(pum=JPUM(mode=mode), **KW, **FAMILIES[family])
     raw = jlm.init_params(jcfg, jax.random.PRNGKey(0))
-    tcfg = tsmall(pum=TPUM(mode=mode), **KW)
+    tcfg = tsmall(pum=TPUM(mode=mode), **KW, **FAMILIES[family])
     params = bridge.params_from_numpy(
         to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
     out = {}
@@ -170,8 +180,8 @@ def ref(request):
                 jax_logits_along(js.engine, list(r.prompt),
                                  done[r.rid].tokens),
                 r.temperature, r.seed)) for r in reqs}
-    return dict(mode=mode, tcfg=tcfg, params=params, jcfg=jcfg, raw=raw,
-                jax=out, jsched=js)
+    return dict(family=family, mode=mode, tcfg=tcfg, params=params,
+                jcfg=jcfg, raw=raw, jax=out, jsched=js)
 
 
 def _sched(ref, **kw):
@@ -214,7 +224,9 @@ def test_contiguous_equals_paged(ref, block, chunked):
 def test_admission_splices_jax_insert_row(ref):
     """After admission the slot's row of every layer holds the prompt's
     K/V (JAX's state after ``_insert`` within the logit tolerance) and
-    zeros exactly beyond it; the other slot's row is untouched."""
+    zeros exactly beyond it, or the recurrent state the prompt left
+    (within 1e-3: it sums the prompt's f32 steps); the other slot's row
+    is untouched: zero K/V, or a fresh state."""
     prompt = [5, 9, 2, 7, 1, 3]
     sched = _sched(ref)
     js = JSched(ref["jcfg"], ref["raw"], kernel_backend="xla", **SCHED)
@@ -223,15 +235,21 @@ def test_admission_splices_jax_insert_row(ref):
         assert s.start_request(req) is None
     tol = LOGIT_TOL[ref["mode"]]
     n = len(prompt)
-    jstate = js.states[0]
+    period = len(js.states)
+    fresh = lm.init_state(ref["tcfg"], 1, SCHED["max_len"], device="cpu")
     for layer, st in enumerate(sched.states):
-        for name in ("k", "v"):
-            got = st[name][0].float().numpy()
-            want = np.asarray(jstate[name][layer, 0].astype(jnp.float32))
-            np.testing.assert_allclose(got[:n], want[:n], atol=tol * 10,
-                                       rtol=2.0 ** -7)
-            assert not got[n:].any() and not want[n:].any()
-            assert not st[name][1].any()
+        jstate = js.states[layer % period]
+        for name, t in st.items():
+            got = t[0].float().numpy()
+            want = np.asarray(jstate[name][layer // period, 0].astype(
+                jnp.float32))
+            if name in ("k", "v"):
+                np.testing.assert_allclose(got[:n], want[:n],
+                                           atol=tol * 10, rtol=2.0 ** -7)
+                assert not got[n:].any() and not want[n:].any()
+            else:
+                np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+            assert torch.equal(t[1], fresh[layer][name][0])
 
 
 def test_instant_completions_leave_the_slot_free(ref):
@@ -304,7 +322,9 @@ def test_long_prompt_through_the_online_softmax(ref, monkeypatch):
     """A prompt of 20 tokens with blocks of 8 (over 2 * CHUNK_Q) takes
     the online softmax at admission and in the solo loop: the scheduler
     equals ``generate_loop`` bit for bit, and JAX's solo loop (blocks
-    shrunk before its engine traces) under the margin rule."""
+    shrunk before its engine traces) under the margin rule.  An xLSTM
+    stack has no attention: its prompts of 20 tokens run the recurrence
+    under the same rules."""
     calls = []
     chunked = tattn._chunked_attention
     monkeypatch.setattr(tattn, "_chunked_attention",
@@ -318,8 +338,10 @@ def test_long_prompt_through_the_online_softmax(ref, monkeypatch):
             Request(prompt[::-1], 5, temperature=1.0, seed=3, rid=2)]
     sched = _sched(ref)
     out = sched.run(reqs)
-    n_layers = ref["tcfg"].num_layers
-    assert len(calls) == 2 * n_layers          # two prompts of 20 tokens
+    n_attn = sum(st.keys() == {"k", "v"} for st in sched.states)
+    assert n_attn == (ref["tcfg"].num_layers if ref["family"] == "dense"
+                      else 0)
+    assert len(calls) == 2 * n_attn            # two prompts of 20 tokens
     jeng = JEngine(ref["jcfg"], ref["raw"], max_len=SCHED["max_len"],
                    kernel_backend="xla")
     for req in reqs:
@@ -342,12 +364,14 @@ def test_long_prompt_through_the_online_softmax(ref, monkeypatch):
 # ServeEngine.generate: the compiled token loop
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def engines():
-    """The port's engine and JAX's on the same dense model (pum)."""
-    jcfg = jsmall(pum=JPUM(mode="pum"), **KW)
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def engines(request):
+    """The port's engine and JAX's on the same model (pum) of each
+    family."""
+    family = request.param
+    jcfg = jsmall(pum=JPUM(mode="pum"), **KW, **FAMILIES[family])
     raw = jlm.init_params(jcfg, jax.random.PRNGKey(1))
-    tcfg = tsmall(pum=TPUM(mode="pum"), **KW)
+    tcfg = tsmall(pum=TPUM(mode="pum"), **KW, **FAMILIES[family])
     params = bridge.params_from_numpy(
         to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
     prompt = np.random.default_rng(1).integers(0, 256, (2, 8)).astype(

@@ -54,10 +54,39 @@ def test_bitslice_mvm_kernels_bit_exact(dev, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 2, 24])
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_packed_entries_take_n_off_the_vector_width(dev, m, n):
+    """The packed K1 and K2 entries at an N that is not a multiple of
+    16 (mLSTM's gates: N = heads = 4; the reduced config's 2): the
+    planes' N padded with zero columns on the kernel, the output cut
+    back, bit for bit the plain versions, one launch each."""
+    k = 1024
+    g = torch.Generator(device=dev).manual_seed(m * n)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    planes = bitslice.slice_planes_signed(wq, 8, 2).to(torch.int8)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((m, 1), generator=g, device=dev)
+    one = wq.to(torch.int8)[None]
+    registry.reset_launches()
+    got1 = mvm.bitslice_mvm_planes_scaled(x, planes, scale)
+    got2 = mvm.bitslice_mvm_planes(x, one, bits_per_slice=8)
+    assert registry.LAUNCHES == {"bitslice_mvm_scaled": 1,
+                                 "bitslice_mvm": 1}
+    assert got1.shape == got2.shape == (m, n)
+    assert torch.equal(got1, mvm.bitslice_mvm_planes_scaled(
+        x, planes, scale, backend="torch"))
+    assert torch.equal(got2, mvm.bitslice_mvm_planes(
+        x, one, bits_per_slice=8, backend="torch"))
+
+
+@pytest.mark.cuda
 def test_bitslice_mvm_rejects_what_it_cannot_take(dev):
     x = torch.zeros((2, 64), dtype=torch.int8, device=dev)
-    with pytest.raises(registry.KernelTileError):      # N % 16 != 0
-        mvm.bitslice_mvm_planes(x, torch.zeros((1, 64, 24), dtype=torch.int8,
+    with pytest.raises(registry.KernelTileError):      # over MAX_SLICES
+        mvm.bitslice_mvm_planes(x, torch.zeros((5, 64, 32), dtype=torch.int8,
                                                device=dev))
     with pytest.raises(registry.KernelTileError):      # not int8
         mvm.bitslice_mvm_planes(x, torch.zeros((1, 64, 32), device=dev))
@@ -788,3 +817,73 @@ def test_every_step_is_idempotent_on_its_inputs(dev, kind, monkeypatch):
     assert len(runs[True][1]) == len(runs[False][1])
     assert all(torch.equal(a, b) for a, b in zip(runs[True][1],
                                                  runs[False][1]))
+
+
+# ---------------------------------------------------------------------------
+# The xLSTM family: recurrent steps under the compiled step's rule
+# ---------------------------------------------------------------------------
+
+def _xlstm(dev, mode):
+    """The reduced xLSTM-350M (period 2: sLSTM and mLSTM), prepacked."""
+    from repro_torch.config import PUMConfig
+    from repro_torch.configs import xlstm_350m
+    from repro_torch.models import lm
+    cfg = xlstm_350m.reduced().replace(pum=PUMConfig(mode=mode))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                       cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "contiguous", "static"])
+def test_recurrent_steps_advance_once(dev, kind):
+    """Each recurrent step kind (paged chunk and decode, contiguous
+    admission prefill and decode, the static batch's prefill and decode
+    step) built and called once, as a graph (warm-up, capture, replay),
+    leaves the recurrent state that one eager call leaves, bit for bit,
+    after every call; and the tokens are equal."""
+    from repro_torch.models import lm
+    from repro_torch.serve import (ContinuousBatchingScheduler, Request,
+                                   ServeEngine)
+    cfg, params = _xlstm(dev, "pum")
+    runs = {}
+    for graphs in (True, False):
+        snaps, toks = [], []
+        if kind == "static":
+            eng = ServeEngine(cfg, params, max_len=32, device=dev,
+                              cuda_graphs=graphs)
+            prompt = torch.randint(0, cfg.vocab_size, (3, 9),
+                                   dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(5)
+                                   ).to(dev)
+            for steps in (1, 6):       # prefill alone (decode built), both
+                toks.append(eng.generate(prompt, steps, temperature=0.7,
+                                         seed=2).tolist())
+                window = eng._scans[(3, 9, 0.7)][2]
+                snaps.append([t.clone() for t in
+                              lm.recurrent_tensors(cfg, window)])
+            assert eng.graphs_captured()[0] == (2 if graphs else 0)
+        else:
+            paged = kind == "paged"
+            sched = ContinuousBatchingScheduler(
+                cfg, params, num_slots=2, max_len=32,
+                kv_block_size=4 if paged else 0, chunked_prefill=paged,
+                device=dev, cuda_graphs=graphs)
+            reqs = [Request(list(range(1, 7)), 4, rid=0),
+                    Request([7, 8, 9], 3, temperature=0.8, seed=3, rid=1)]
+            for req in reqs:
+                sched.start_request(req)
+                snaps.append([t.clone() for t in
+                              lm.recurrent_tensors(cfg, sched.states)])
+            for step in range(6):
+                toks += sched.tick(step).events
+                snaps.append([t.clone() for t in
+                              lm.recurrent_tensors(cfg, sched.states)])
+            built = sched.graphs_captured()[0]
+            assert built == (len(sched._programs) if graphs else 0)
+        torch.cuda.synchronize()
+        runs[graphs] = toks, snaps
+    assert runs[True][0] == runs[False][0] and runs[True][0]
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))

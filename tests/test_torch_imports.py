@@ -83,9 +83,14 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         aes.main(["--blocks", "256"])
 
 
+ARCHS = ["qwen2.5-3b", "xlstm-350m"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode", ["pum", "int8", "bf16"])
-def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
-    res = serve.main(["--reduced", "--device", "cpu", "--pum-mode", mode,
+def test_serve_cli_on_the_cpu_when_asked(mode, arch, capsys):
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--pum-mode", mode,
                       "--batch-slots", "2", "--requests", "3",
                       "--min-prompt-len", "3", "--prompt-len", "9",
                       "--gen", "4", "--kv-block-size", "4",
@@ -93,6 +98,8 @@ def test_serve_cli_on_the_cpu_when_asked(mode, capsys):
     out = capsys.readouterr().out
     assert "throughput_tok_per_s=" in out and "decode_ms_per_step=" in out
     assert "device=cpu" in out
+    # the recurrent stack pages no KV
+    assert ("no KV: 0 blocks a request" in out) == (arch == "xlstm-350m")
     assert len(res["completions"]) == 3
     assert all(len(c.tokens) == 4 for c in res["completions"].values())
     sched = res["scheduler"]
@@ -117,11 +124,13 @@ def test_serve_cli_samples_at_its_temperature(capsys):
             res["scheduler"].engine, req)
 
 
-def test_serve_cli_contiguous_windows(capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_contiguous_windows(arch, capsys):
     """``--kv-block-size 0``: the contiguous scheduler, one prefill a
     request, each completion equal to its solo oracle; chunked prefill
     needs the paged pool."""
-    args = ["--reduced", "--device", "cpu", "--batch-slots", "2",
+    args = ["--arch", arch, "--reduced", "--device", "cpu",
+            "--batch-slots", "2",
             "--requests", "3", "--prompt-len", "9", "--gen", "4",
             "--kv-block-size", "0", "--temperature", "0.5"]
     res = serve.main(args)
@@ -135,11 +144,13 @@ def test_serve_cli_contiguous_windows(capsys):
         serve.main(args + ["--chunked-prefill"])
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("temperature", ["0", "0.7"])
-def test_serve_cli_static_batch(temperature, capsys):
+def test_serve_cli_static_batch(temperature, arch, capsys):
     """``--batch-slots 0``: the static batch through ``generate``, the
     compiled token loop and ``--loop`` giving the same tokens."""
-    args = ["--reduced", "--device", "cpu", "--batch-slots", "0",
+    args = ["--arch", arch, "--reduced", "--device", "cpu",
+            "--batch-slots", "0",
             "--batch", "3", "--prompt-len", "7", "--gen", "5",
             "--temperature", temperature]
     scan = serve.main(args)

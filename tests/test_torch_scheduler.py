@@ -1,10 +1,14 @@
 """The port's continuous-batching scheduler against the JAX package's
-(``kernel_backend="xla"``): dense model x {pum, int8, bf16}, paged KV blocks
-of 4, chunked prefill, three staggered greedy requests.
+(``kernel_backend="xla"``): the dense and the xLSTM family (the
+reference's ``FAMILIES``) x {pum, int8, bf16}, paged KV blocks of 4,
+chunked prefill, three staggered greedy requests.  An xLSTM stack pages
+no KV: its requests take 0 blocks, and its prompts stream in chunks
+through their slot's recurrent rows.
 
   * teacher forcing: JAX's greedy tokens fed through the port's prefill
     and decode steps give per-step logits within ``LOGIT_TOL`` of JAX's
-    (``BF16_MODE_LOGIT_TOL`` in bf16 mode);
+    (``BF16_MODE_LOGIT_TOL`` in bf16 mode; for xLSTM in int8/pum, one
+    step of a request may be within ``FLIP_TOL``);
   * the port's scheduler emits JAX's tokens wherever JAX's top-2 logit
     margin exceeds 10x that tolerance (past a near-tie the two may
     legitimately diverge);
@@ -45,29 +49,42 @@ LOGIT_TOL = 1e-4
 # differences can flip the bf16 rounding of a cached K/V cell (2^-8
 # relative), which moves these logits by a few 1e-4
 BF16_MODE_LOGIT_TOL = 2e-3
+# xLSTM in int8/pum: XLA's and torch's exp, log-sigmoid and tanh differ
+# by an ulp here and there, and an activation on an int8 rounding edge
+# then quantises one step apart; one step of one input of a projection
+# moves these logits by up to ~5e-3 at the step it happens (the states
+# carry it on at the 1e-7 level).  So at most one step of a request may
+# exceed the logit tolerance, and by no more than FLIP_TOL
+FLIP_TOL = 1e-2
 TRACE = [([3, 1, 4, 1, 5], 8, 0), ([9, 2, 6, 5, 3, 5, 8], 6, 1),
          ([7, 7], 7, 2)]
-KW = dict(dtype="float32", qkv_bias=True, tie_embeddings=True)
+KW = dict(dtype="float32")
+FAMILIES = {"dense": dict(qkv_bias=True, tie_embeddings=True),
+            "xlstm": dict(xlstm_slstm_every=2)}
+MODES = ["pum", "int8", "bf16"]
 SCHED = dict(num_slots=2, max_len=24, kv_block_size=4, chunked_prefill=True)
 
 
-@pytest.fixture(scope="module", params=["pum", "int8", "bf16"])
+@pytest.fixture(scope="module",
+                params=[(f, m) for f in FAMILIES for m in MODES],
+                ids=[f"{f}-{m}" for f in FAMILIES for m in MODES])
 def ref(request):
     """JAX's scheduler run and per-step solo logits, built once per
-    mode; and the port's params carried across by the bridge."""
-    mode = request.param
-    jcfg = jsmall(pum=JPUM(mode=mode), **KW)
+    family and mode; and the port's params carried across by the
+    bridge."""
+    family, mode = request.param
+    jcfg = jsmall(pum=JPUM(mode=mode), **KW, **FAMILIES[family])
     raw = jlm.init_params(jcfg, jax.random.PRNGKey(0))
     js = JSched(jcfg, raw, kernel_backend="xla", **SCHED)
     out = js.run([JRequest(p, m, arrival=a) for p, m, a in TRACE])
     tokens = {rid: out[rid].tokens for rid in out}
     logits = {rid: jax_logits_along(js.engine, prompt, tokens[rid])
               for rid, (prompt, _, _) in enumerate(TRACE)}
-    tcfg = tsmall(pum=TPUM(mode=mode), **KW)
+    tcfg = tsmall(pum=TPUM(mode=mode), **KW, **FAMILIES[family])
     params = bridge.params_from_numpy(
         to_numpy(jlm.prepack_for_serving(raw, jcfg)), tcfg, device="cpu")
     tol = BF16_MODE_LOGIT_TOL if mode == "bf16" else LOGIT_TOL
-    return dict(mode=mode, tcfg=tcfg, params=params, tokens=tokens,
+    return dict(family=family, mode=mode, tcfg=tcfg, params=params, tokens=tokens,
                 logits=logits, tol=tol, jcfg=jcfg, raw=raw,
                 jengine=js.engine)
 
@@ -86,7 +103,10 @@ def test_teacher_forced_logits_match(ref):
             steps.append(lg[0, -1])
         got = torch.stack(steps).numpy()
         want = ref["logits"][rid]
-        np.testing.assert_allclose(got, want, atol=ref["tol"], rtol=0)
+        err = np.abs(got - want).max(axis=-1)
+        flips = ref["family"] == "xlstm" and ref["mode"] != "bf16"
+        assert (err > ref["tol"]).sum() <= (1 if flips else 0), err
+        assert err.max() <= (FLIP_TOL if flips else ref["tol"]), err
         for i, row in enumerate(want):
             if margin(row) > 10 * ref["tol"]:
                 assert int(got[i].argmax()) == ref["tokens"][rid][i]
@@ -159,7 +179,9 @@ def test_block_allocator_matches_jax(seed):
 def test_port_scheduler_equals_own_oracle(ref, block, chunked):
     """Inside the port, across block sizes and chunked / monolithic
     prefill: every request's tokens equal its solo ``generate_loop``
-    run (contiguous cache) bit for bit, so paged == contiguous too."""
+    run (contiguous cache) bit for bit, so paged == contiguous too.
+    Four requests on two slots: the last reuses a slot, whose recurrent
+    rows (xLSTM) must start from a fresh state."""
     sched = ContinuousBatchingScheduler(
         ref["tcfg"], ref["params"], device="cpu", num_slots=2, max_len=24,
         kv_block_size=block, chunked_prefill=chunked)
@@ -218,14 +240,21 @@ def test_port_scheduler_raises_on_a_request_never_funded(ref):
     """With every KV block held outside the scheduler and nothing live,
     the head of the ready queue can never be admitted: ``run`` raises
     instead of spinning (no tick dispatches, so its step budget would
-    never run out)."""
+    never run out).  An xLSTM stack pages no KV, so its requests need no
+    block and are served all the same."""
     sched = ContinuousBatchingScheduler(
         ref["tcfg"], ref["params"], device="cpu", num_slots=2, max_len=24,
         kv_block_size=4)
     held = sched._alloc.alloc(sched.num_kv_blocks - 1)
     assert held is not None
+    reqs = [Request([1, 2, 3], 3), Request([4, 5], 2)]
+    if ref["family"] == "xlstm":
+        out = sched.run(reqs)
+        assert [len(out[r].tokens) for r in (0, 1)] == [3, 2]
+        assert sched._alloc.free_blocks == 1
+        return
     with pytest.raises(SchedulerStalled, match="never be funded"):
-        sched.run([Request([1, 2, 3], 3), Request([4, 5], 2)])
+        sched.run(reqs)
 
 
 # TRACE's prompts at three temperatures, a seed each
