@@ -22,7 +22,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    The same for xLSTM-350M's 120 projections (1024 x 6144, 1024 x 4,
    1024 x 2048, 2048 x 1024): at N = 4, mLSTM's gates, the packed
    entries pad the planes to 16 columns a call, timed beside the same
-   launches on planes padded once.
+   launches on planes padded once.  The same for OLMoE-1B-7B's 64
+   projections (2048 x 2048, M = 4 and 16), and K3 at the MoE head
+   layouts (KV = 16, G = 1, hd = 128 and KV = 8, G = 2, hd = 64, at
+   the same (S, T) cases); then K3's store where 6 inactive rows and a
+   past-width one write the same trash cells (S = 1 and 16): its pools
+   bit-equal to the plain version's, the last row's value in each
+   shared cell, as the reference's sequential scatter leaves it.  Every
+   K3 case holds the pools bit for bit, trash block included.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -133,18 +140,61 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    64-token prompt's prefill device ms, graph build seconds, the
    recurrent bytes a slot beside Qwen2.5-3B's KV bytes, and the phase's
    seconds.
-11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-10) must have launched there;
+11. moe — OLMoE-1B-7B at full width and depth (16 layers, d_model
+   2048, 64 experts top-8, random weights; 25.8 GB of f32 expert
+   stacks), in ``pum`` and ``int8``: the CLI on phase 4's trace paged
+   (blocks of 16, chunked prefill) and with ``--kv-block-size 0``, at
+   the config's own capacity factor 1.25 (capacity 1 an expert at a
+   decode step), gated: 64 MVM launches a step, chunk or prompt (q, k,
+   v, o: none for the f32 router or the float experts), 16 K3 a paged
+   one and none contiguous; each program built once; the same trace
+   from a fresh state (idle rows take capacity, so a run depends on
+   what the last one left) the CLI's tokens twice, building nothing;
+   graphs == eager in tokens and launches; every step's logits finite;
+   the ``cuda`` and ``torch`` backends on one chunk and one step,
+   routed alike (``routing``: the torch run and a run with layer 0's
+   input nudged by one bf16 ulp take the cuda run's experts): logits
+   within the nudge's change, greedy tokens equal, router
+   probabilities within the nudge's change (the router's one-ulp
+   sensitivity), and every row where the torch router would choose
+   other experts at a near-tie (the cuda run's probabilities of the
+   two experts within that sensitivity), counted.  Then at capacity
+   factor E / k (no drops), paged and contiguous, each against every
+   request alone through ``generate_loop`` on ``cuda``: an eager run
+   with every row routed as its request alone routed it keeps the
+   router probabilities within the sensitivity, differs in its own
+   choices only at router near-ties, and first differs in tokens only
+   where the solo's top-2 margin is within the one-ulp logit bound
+   (both measured by the backend parity at this factor); the free runs
+   (graphs == eager) first differ where the held run does or after a
+   router near-tie.  The expert products' row count is the capacity
+   and K3 sums in another order than the solo's attention, so the
+   logits are not bit-equal; the share of solo margins and router gaps
+   within the thresholds is printed.  Then the static batch (scan ==
+   ``--loop``, t = 0).  granite-moe-1b-a400m (24 layers, 32 experts,
+   GQA G = 2, hd 64) once through the paged CLI in ``pum``: launches,
+   builds, a fresh-state rerun, finite logits.  Prints decode ms/step
+   (graphs and eager), tokens/s, a decode replay's device ms and its
+   split under the profiler (K1/K2, K3, the cast's copies, float
+   GEMMs, sort and ranks, gathers), the expert cast, the expert
+   products and the rest of one layer's ``moe_ffn`` timed alone, a
+   64-token prefill's device ms, the share of assignments dropped a
+   decode step, peak memory and the phase's seconds.
+12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-11) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
    (``cnn_shapes``), K1's and K2's their rows at M = 4096
-   (``prefill_shape``) and at xLSTM-350M's shapes (``xlstm_shapes``).
+   (``prefill_shape``), at xLSTM-350M's shapes (``xlstm_shapes``) and
+   at OLMoE-1B-7B's (``moe_shapes``), K3's at the MoE head layouts
+   (``moe_shapes``).
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
 ``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
 phases 1, 2 and 9, ``--only xlstm`` phases 1, 2, phase 3's xLSTM
-shapes and 10.
+shapes and 10, ``--only moe`` phases 1, 2, phase 3's MoE shapes and
+11.
 """
 from __future__ import annotations
 
@@ -425,15 +475,19 @@ def check_mvm(dev) -> dict[str, dict]:
 
 
 ATTN_CASES = [(1, 81), (16, 81), (1, 1024)]       # (S, T window)
+# head layouts (KV heads, queries a KV head, head dim): Qwen2.5-3B's,
+# then OLMoE-1B-7B's (MHA) and granite-moe-1b-a400m's
+QWEN_HEADS = (2, 8, 128)
+MOE_HEADS = [(16, 1, 128), (8, 2, 64)]
 
 
-def _attn_case(dev, s: int, kv_len: int, seed: int):
-    """Qwen2.5-3B's head layout at the serve run's geometry: 4 rows,
-    blocks of 16, a table as wide as the T window (T = 81 is the serve
-    run's, 6 columns; T = 1024 a long context).  Row 2 is inactive (its
-    table is all trash); row 3 writes past its table width."""
+def _attn_case(dev, s: int, kv_len: int, seed: int, heads=QWEN_HEADS):
+    """A head layout (default Qwen2.5-3B's) at the serve run's geometry:
+    4 rows, blocks of 16, a table as wide as the T window (T = 81 is the
+    serve run's, 6 columns; T = 1024 a long context).  Row 2 is inactive
+    (its table is all trash); row 3 writes past its table width."""
     import torch
-    b, kvh, grp, hd, bs = 4, 2, 8, 128, 16
+    (kvh, grp, hd), b, bs = heads, 4, 16
     w = -(-kv_len // bs)
     nb = 1 + b * w
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -479,16 +533,24 @@ def _v_nudged(args):
             + args[5:])
 
 
-def check_attention(dev, gpu_name: str) -> dict:
+def check_attention(dev, gpu_name: str, layouts=(QWEN_HEADS,),
+                    cases=ATTN_CASES) -> list[dict]:
+    """K3 at each head layout and (S, T) case against its plain version:
+    outputs within the stated tolerance, the pools bit for bit (the
+    trash block too: where the inactive and the past-width row write one
+    trash cell, the later row wins on both), two calls bit-equal; timed
+    beside the plain version, ``scaled_dot_product_attention`` and the
+    bound.  Returns every case's row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops, ref
     bw, flops, _ = peaks(gpu_name)
-    row = None
+    rows = []
     active = [0, 1, 3]
-    for s, kv_len in ATTN_CASES:
-        args = _attn_case(dev, s, kv_len, seed=s)
+    for heads, (s, kv_len) in ((h, c) for h in layouts for c in cases):
+        kvh, grp, hd = heads
+        args = _attn_case(dev, s, kv_len, seed=s, heads=heads)
         kp_ref, vp_ref, out_ref = ops.paged_attention(
             *args, kv_len=kv_len, backend="torch")
         out_nudged = ops.paged_attention(*_v_nudged(args), kv_len=kv_len,
@@ -498,28 +560,25 @@ def check_attention(dev, gpu_name: str) -> dict:
         _, _, out = ops.paged_attention(*kargs, kv_len=kv_len,
                                         backend="cuda")
         torch.cuda.synchronize()
-        # the trash block 0 takes colliding writes of the inactive and
-        # the past-width row (unordered between rows, never attended by
-        # an active row); every other block must be equal bit for bit
-        pools_equal = (torch.equal(kp[1:], kp_ref[1:])
-                       and torch.equal(vp[1:], vp_ref[1:]))
+        pools_equal = torch.equal(kp, kp_ref) and torch.equal(vp, vp_ref)
         o, r = out[active].float(), out_ref[active].float()
         err = (o - r).abs().max().item()
         tol = (out_nudged[active].float() - r).abs().max().item()
         close = (torch.allclose(o, r, atol=ATTN_ATOL, rtol=ATTN_RTOL)
                  and 0 < tol and err <= tol)
         finite = bool(torch.isfinite(out[active].float()).all())
+        label = (f"paged_attention B=4 S={s} KV={kvh} G={grp} hd={hd} bs=16 "
+                 f"T={kv_len}")
         if not (pools_equal and close and finite):
             raise AssertionError(
-                f"paged_attention S={s} T={kv_len}: pools equal="
-                f"{pools_equal}, max|diff|={err} (atol {ATTN_ATOL}, rtol "
-                f"{ATTN_RTOL}, one-ulp V bound {tol}), finite={finite}")
+                f"{label}: pools equal={pools_equal}, max|diff|={err} (atol "
+                f"{ATTN_ATOL}, rtol {ATTN_RTOL}, one-ulp V bound {tol}), "
+                f"finite={finite}")
         if not deterministic(lambda: ops.paged_attention(
                 *kargs, kv_len=kv_len, backend="cuda")[2][active]):
-            raise AssertionError(f"paged_attention S={s} T={kv_len} differs "
-                                 f"between two calls")
-        plan = ops.attention_plan(s, args[0].shape[3], args[0].shape[4],
-                                  kv_len, registry.device_props(dev.index))
+            raise AssertionError(f"{label} differs between two calls")
+        plan = ops.attention_plan(s, grp, hd, kv_len,
+                                  registry.device_props(dev.index))
         # timings: pools rotated past the L2 cache like the weights
         nbytes = 2 * args[3].numel() * args[3].element_size()
         rot = Rotating(lambda: (args[3].clone(), args[4].clone()), nbytes)
@@ -537,26 +596,79 @@ def check_attention(dev, gpu_name: str) -> dict:
         t = device_ms(kern)
         p = device_ms(plain, iters=5)
         q = args[0]
-        b, _, kvh, grp, hd = q.shape
+        b = q.shape[0]
         qh = q.reshape(b, s, kvh * grp, hd).transpose(1, 2)
         kg = ref.gather_rows(kp_ref, args[5], kv_len).transpose(1, 2)
         vg = ref.gather_rows(vp_ref, args[5], kv_len).transpose(1, 2)
         mask = ref.causal_mask(args[7], s, kg.shape[2])[:, None]
         lib = device_ms(lambda: F.scaled_dot_product_attention(
-            qh, kg, vg, attn_mask=mask, enable_gqa=True))
+            qh, kg, vg, attn_mask=mask, enable_gqa=grp > 1))
         bound = _attn_bound(args, kv_len, bw, flops)
-        log(f"paged_attention B=4 S={s} KV=2 G=8 hd=128 bs=16 T={kv_len} "
-            f"(window over {plan.splits} CTAs): max|diff|={err:.3g} (one-"
-            f"ulp V bound {tol:.3g}, max|out| "
-            f"{r.abs().max().item():.3g}) pools bit-equal, two calls "
-            f"bit-equal | "
+        log(f"{label} (window over {plan.splits} CTAs): max|diff|={err:.3g} "
+            f"(one-ulp V bound {tol:.3g}, max|out| "
+            f"{r.abs().max().item():.3g}) pools bit-equal (trash block "
+            f"included), two calls bit-equal | "
             f"kernel {t:.4f} ms (plain {p:.4f}, bound {bound:.4f}, "
             f"{share(bound, t)} of bound) | sdpa {lib:.4f} ms, kernel / "
             f"sdpa {t / lib:.3f}")
-        if (s, kv_len) == ATTN_CASES[0]:
-            row = dict(max_abs_err=err, ms=t, plain_ms=p, bound_ms=bound,
-                       bound_by="bytes", library_ms=lib)
-    return row
+        rows.append(dict(S=s, T=kv_len, KV=kvh, G=grp, hd=hd,
+                         max_abs_err=err, ms=t, plain_ms=p, bound_ms=bound,
+                         bound_by="bytes", library_ms=lib))
+    return rows
+
+
+def attention_row(rows: list[dict]) -> dict:
+    """K3's row of the kernels line: the first case (decode, T = 81)."""
+    return {k: v for k, v in rows[0].items()
+            if k not in ("S", "T", "KV", "G", "hd")}
+
+
+def check_trash_store(dev) -> None:
+    """K3's store where rows collide: 8 rows, 6 of them inactive (all-
+    trash tables) at depths that send them to the same trash cells, and
+    one writing past its table width, at a decode step (S = 1) and a
+    chunk (S = 16); the pools after the kernel equal the plain
+    version's bit for bit, trash block included (the last row wins a
+    cell on both), in two calls from the same pools."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+    b, kvh, grp, hd, bs, w = 8, 16, 1, 128, 16, 6
+    g = torch.Generator(device=dev).manual_seed(11)
+    for s in (1, 16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        nb = 1 + 2 * w
+        q = rnd(b, s, kvh, grp, hd)
+        k_new, v_new = rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+        k_pool, v_pool = rnd(nb, bs, kvh, hd), rnd(nb, bs, kvh, hd)
+        table = torch.zeros((b, w), dtype=torch.int32, device=dev)
+        table[0] = torch.arange(1, w + 1)
+        table[5] = torch.arange(w + 1, 2 * w + 1)
+        # rows 1-4, 6 and 7 inactive, all at offset 3 of the trash block;
+        # row 5 past its width from its fourth position on (S = 16)
+        ci = torch.tensor([40, 3, 19, 35, 51, w * bs - 3 if s > 1 else 20,
+                           67, 83], dtype=torch.int32, device=dev)
+        args = (q, k_new, v_new, k_pool, v_pool, table, table.clone(), ci)
+        kp_ref, vp_ref, _ = ops.paged_attention(*args, kv_len=w * bs,
+                                                backend="torch")
+        got = []
+        for _ in range(2):
+            kp, vp = k_pool.clone(), v_pool.clone()
+            ops.paged_attention(*args[:3], kp, vp, *args[5:],
+                                kv_len=w * bs, backend="cuda")
+            got.append((kp, vp))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(kp, kp_ref) and torch.equal(vp, vp_ref)
+                    for kp, vp in got)
+        last = torch.equal(kp_ref[0, 3], k_new[7, 0])
+        log(f"paged_attention store, {b} rows, 6 inactive on one trash cell "
+            f"(S={s}{', one row past its width' if s > 1 else ''}): pools "
+            f"bit-equal to the plain version in two calls: {equal}; the "
+            f"last row's value in the shared cell: {last}")
+        if not (equal and last):
+            raise AssertionError(f"K3's duplicate-trash store at S={s}")
 
 
 GF2_SHAPES = [(128, 128), (200, 129), (64, 32), (48, 16), (512, 48),
@@ -791,46 +903,57 @@ def serve_run(mode: str, smi: str) -> tuple[dict, dict]:
     return res, launches
 
 
+def chunk_and_step(sched, params, backend: str, toks=None):
+    """One prefill chunk and one decode step of ``sched``'s model on
+    ``params``, from a fresh pool, on ``backend``: their last logits
+    [1, 2, V] in f32."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    cfg, dev = sched.cfg, sched.device
+    bs, max_len = sched.block_size, sched.max_len
+    w = sched.table_width
+    if toks is None:
+        g = torch.Generator(device="cpu").manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (1, bs + 1), generator=g)
+    toks = toks.to(dev, torch.int32)
+    table = torch.arange(1, w + 1, dtype=torch.int32, device=dev)[None]
+    states = lm.init_paged_state(cfg, 1, max_len, num_blocks=w,
+                                 block_size=bs, device=dev)
+    with torch.inference_mode(), registry.use_backend(backend):
+        chunk, states = lm.forward(
+            params, toks[:, :bs], cfg, states=states,
+            cache_index=torch.zeros(1, dtype=torch.int32, device=dev),
+            block_table=table, kv_len=max_len, last_only=True)
+        step, states = lm.forward(
+            params, toks[:, bs:], cfg, states=states,
+            cache_index=torch.full((1,), bs, dtype=torch.int32, device=dev),
+            block_table=table, kv_len=max_len, last_only=True)
+    return torch.cat([chunk, step], dim=1).float()
+
+
+def nudged(params):
+    """``params`` with layer 0's attention input moved by one bf16 ulp
+    on every other channel (its norm scale times 1 + ULP)."""
+    import torch
+    norm = dict(params["blocks"][0]["norm1"])
+    nudge = torch.ones_like(norm["scale"])
+    nudge[::2] += ULP
+    norm["scale"] = norm["scale"] * nudge
+    return dict(params, blocks=[dict(params["blocks"][0], norm1=norm),
+                                *params["blocks"][1:]])
+
+
 def backend_parity(sched) -> None:
     """One prefill chunk and one decode step of the served model, from
     the same fresh pool, on the ``cuda`` and the ``torch`` backends, and
     on ``cuda`` once more with layer 0's attention input moved by one
     bf16 ulp on every other channel: that run's change is the bound."""
     import torch
-    from repro_torch.kernels import registry
-    from repro_torch.models import lm
-    cfg, params, dev = sched.cfg, sched.params, sched.device
-    bs, max_len = sched.block_size, sched.max_len
-    w = sched.table_width
-    g = torch.Generator(device="cpu").manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (1, bs + 1), generator=g)
-    toks = toks.to(dev, torch.int32)
-    table = torch.arange(1, w + 1, dtype=torch.int32, device=dev)[None]
-
-    def chunk_and_step(p, backend):
-        states = lm.init_paged_state(cfg, 1, max_len, num_blocks=w,
-                                     block_size=bs, device=dev)
-        with torch.inference_mode(), registry.use_backend(backend):
-            chunk, states = lm.forward(
-                p, toks[:, :bs], cfg, states=states,
-                cache_index=torch.zeros(1, dtype=torch.int32, device=dev),
-                block_table=table, kv_len=max_len, last_only=True)
-            step, states = lm.forward(
-                p, toks[:, bs:], cfg, states=states,
-                cache_index=torch.full((1,), bs, dtype=torch.int32,
-                                       device=dev),
-                block_table=table, kv_len=max_len, last_only=True)
-        return torch.cat([chunk, step], dim=1).float()
-
-    a = chunk_and_step(params, "cuda")
-    b = chunk_and_step(params, "torch")
-    norm = dict(params["blocks"][0]["norm1"])
-    nudge = torch.ones_like(norm["scale"])
-    nudge[::2] += ULP
-    norm["scale"] = norm["scale"] * nudge
-    nudged = dict(params, blocks=[dict(params["blocks"][0], norm1=norm),
-                                  *params["blocks"][1:]])
-    c = chunk_and_step(nudged, "cuda")
+    cfg, params = sched.cfg, sched.params
+    a = chunk_and_step(sched, params, "cuda")
+    b = chunk_and_step(sched, params, "torch")
+    c = chunk_and_step(sched, nudged(params), "cuda")
     if not all(bool(torch.isfinite(t).all()) for t in (a, b, c)):
         raise AssertionError("non-finite logits")
     err = (a - b).abs().max().item()
@@ -2332,6 +2455,688 @@ def xlstm_rows(cases: list[dict]) -> dict[str, list[dict]]:
                                ("bitslice_mvm", "K2"))}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE family (top-k routed experts, capacity-bounded dispatch)
+# ---------------------------------------------------------------------------
+
+# phase 4's trace on OLMoE-1B-7B: paged (blocks of 16, chunked prefill)
+# and from contiguous windows; the static batch; granite-moe-1b-a400m
+# paged
+OLMOE_ARGS = ["--arch", "olmoe-1b-7b"] + SERVE_ARGS[2:]
+OLMOE_CONTIG_ARGS = ["--arch", "olmoe-1b-7b"] + CONTIG_ARGS[2:]
+OLMOE_STATIC_ARGS = ["--arch", "olmoe-1b-7b"] + STATIC_ARGS[2:]
+GRANITE_ARGS = ["--arch", "granite-moe-1b-a400m"] + SERVE_ARGS[2:]
+# OLMoE-1B-7B's projections on the MVM kernels: q, k, v and o of its 16
+# MHA layers, all 2048 x 2048 (the router and the experts are float
+# products): 64 a forward pass
+OLMOE_LAYERS = 16
+OLMOE_MVM = {(2048, 2048): 64}
+# device kernels of a decode replay by name, for its split under the
+# profiler; "float GEMMs" holds the expert bmms, and with them the f32
+# router and lm head
+KERNEL_CLASSES = [
+    ("K1/K2", ("bitslice_mvm",)),
+    ("K3", ("paged_attention", "store_kernel")),
+    ("expert cast (copies)", ("copy_kernel",)),
+    ("float GEMMs", ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")),
+    ("sort and ranks", ("sort", "radix", "searchsorted")),
+    ("gathers and scatters", ("index", "scatter", "gather")),
+]
+
+
+def no_drop(cfg):
+    """``cfg`` at capacity factor E / k: an expert's capacity is then
+    every row of a call, and no assignment is dropped."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+class routing:
+    """Within ``with``, every ``moe.route`` call (one a layer of each
+    forward pass, as ``moe_ffn`` makes it) is recorded in ``calls``: its
+    router probabilities [T, E], the top-k experts it chose itself
+    [T, k], its layer, its capacity and what its rows hold (``rows``:
+    (request id, position), or None for a row that holds no request).
+    ``label`` names the rows of the calls that follow; a scheduler
+    given as ``sched`` names its own (its prompt dispatches and its
+    decode steps, whose rows are its slots).  ``force(n, layer, rows,
+    experts)`` may return other top-k experts for call ``n``, which it
+    then routes to, gated by its own probabilities normalised as
+    ``route`` does: a run can hold another run's routing.  Eager runs
+    only: a graph replay runs no Python."""
+
+    def __init__(self, layers: int, sched=None, force=None):
+        self.layers, self.sched, self.force = layers, sched, force
+        self.rows, self._admitting = None, None
+
+    def label(self, rows) -> None:
+        self.rows = rows
+
+    def _slot_rows(self) -> list:
+        s = self.sched
+        return [(s._slot_req[i].rid, len(s._slot_req[i].prompt)
+                 + len(s._slot_toks[i]) - 1) if s._active[i] else None
+                for i in range(s.num_slots)]
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self.inner = [], moe.route
+
+        def route(p, xf, cfg):
+            logits, probs, vals, idx = self.inner(p, xf, cfg)
+            n, layer = len(self.calls), len(self.calls) % self.layers
+            decode = self.rows is None and self.sched is not None
+            rows = self._slot_rows() if decode else self.rows
+            self.calls.append(dict(probs=probs, idx=idx, rows=rows,
+                                   layer=layer, decode=decode,
+                                   cap=moe.capacity(xf.shape[0], cfg)))
+            held = None if self.force is None else self.force(
+                n, layer, rows, idx)
+            if held is None:
+                return logits, probs, vals, idx
+            sel = probs.gather(-1, held)
+            return logits, probs, sel / sel.sum(-1, keepdim=True), held
+
+        moe.route = route
+        s = self.sched
+        if s is not None:
+            dispatch, admit = s._dispatch, s._admit
+
+            def labelled(key, *values):
+                # a paged chunk: (tokens, start, table row, slot, ...); a
+                # contiguous admission: the whole prompt from position 0
+                rid, start = ((s._prefills[int(values[3])].req.rid,
+                               int(values[1])) if s.paged
+                              else (self._admitting, 0))
+                self.rows = [(rid, start + j) for j in range(key)]
+                try:
+                    return dispatch(key, *values)
+                finally:
+                    self.rows = None
+
+            def admitting(slot, req, step):
+                self._admitting = req.rid
+                return admit(slot, req, step)
+
+            s._dispatch, s._admit = labelled, admitting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.inner
+        if self.sched is not None:
+            del self.sched._dispatch, self.sched._admit
+
+
+def k_gaps(probs, k: int):
+    """Each row's gap between its k-th and (k+1)-th largest probability:
+    how far its router sits from choosing another expert."""
+    import numpy as np
+    top = -np.sort(-np.asarray(probs), axis=-1)
+    return top[..., k - 1] - top[..., k]
+
+
+def by_position(calls: list) -> dict:
+    """The labelled rows of recorded calls, on the host: {(request id,
+    position): {layer: (probabilities, experts)}}."""
+    out: dict = {}
+    for c in calls:
+        if c["rows"] is None:
+            continue
+        probs, idx = c["probs"].cpu().numpy(), c["idx"].cpu().numpy()
+        for r, lab in enumerate(c["rows"]):
+            if lab is not None:
+                out.setdefault(lab, {})[c["layer"]] = (probs[r], idx[r])
+    return out
+
+
+def held_to(ref: dict):
+    """A ``routing`` force that routes each labelled row as ``ref`` (a
+    ``by_position`` map) routed its request's position at that layer."""
+    import numpy as np
+    import torch
+
+    def force(n, layer, rows, idx):
+        hit = [(r, ref[lab][layer][1]) for r, lab in enumerate(rows or [])
+               if lab in ref]
+        if not hit:
+            return None
+        out = idx.clone()
+        out[torch.tensor([r for r, _ in hit], device=idx.device)] = \
+            torch.from_numpy(np.stack([e for _, e in hit])).to(out)
+        return out
+
+    return force
+
+
+def swap_gap(p_ref, e_ref, e_got) -> float:
+    """Where two top-k choices differ: the gap in the reference's
+    probabilities between its expert and the other run's at the first
+    rank where they differ (>= 0: the reference ranked its own first)."""
+    import numpy as np
+    j = int(np.nonzero(e_ref != e_got)[0][0])
+    return float(p_ref[e_ref[j]] - p_ref[e_got[j]])
+
+
+def moe_backend_parity(sched) -> tuple[float, float]:
+    """``backend_parity`` for an MoE model, with the routing held: one
+    chunk and one decode step on the ``cuda`` backend (run a), on the
+    ``torch`` backend (b) and on ``cuda`` with layer 0's attention input
+    moved by one bf16 ulp on every other channel (c), b and c routed as
+    a routes (``routing(force=...)``: the same experts, gated by their
+    own probabilities).  With the routing held the runs differ only by
+    rounding, and these must hold: b's logits within c's change of a's
+    (the bound) and b's greedy tokens a's; b's router probabilities
+    within c's change of a's (the router's one-ulp sensitivity); and
+    wherever b's router would itself choose other experts than a's, a's
+    probabilities of the two experts within that sensitivity (a
+    near-tie, counted).  Returns (the bound, the sensitivity): how far
+    one ulp moves the logits and the router with the routing held."""
+    import numpy as np
+    import torch
+    cfg, params = sched.cfg, sched.params
+    layers, k = cfg.num_layers, cfg.moe.top_k
+    with routing(layers) as ra:
+        a = chunk_and_step(sched, params, "cuda")
+
+    def held(n, layer, rows, idx):
+        return ra.calls[n]["idx"]
+
+    with routing(layers, force=held) as rb:
+        b = chunk_and_step(sched, params, "torch")
+    with routing(layers, force=held) as rc:
+        c = chunk_and_step(sched, nudged(params), "cuda")
+    if not all(bool(torch.isfinite(t).all()) for t in (a, b, c)):
+        raise AssertionError("non-finite logits")
+    if not len(ra.calls) == len(rb.calls) == len(rc.calls) == 2 * layers:
+        raise AssertionError("the moe calls were not all recorded")
+    err = (a - b).abs().max().item()
+    bound = (c - a).abs().max().item()
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    top2 = torch.topk(a, 2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).flatten().tolist()
+
+    def host(calls, key):
+        return [x[key].cpu().numpy() for x in calls]
+
+    pa, pb, pc = (host(r.calls, "probs") for r in (ra, rb, rc))
+    ea, eb = host(ra.calls, "idx"), host(rb.calls, "idx")
+    drift = max(float(np.abs(x - y).max()) for x, y in zip(pb, pa))
+    sens = max(float(np.abs(x - y).max()) for x, y in zip(pc, pa))
+    swaps = [(n, swap_gap(pa[n][r], ea[n][r], eb[n][r]))
+             for n in range(len(ea))
+             for r in np.nonzero((ea[n] != eb[n]).any(-1))[0]]
+    gaps = np.concatenate([k_gaps(x, k) for x in pa])
+    log(f"backend parity {cfg.name} {cfg.pum.mode} (capacity factor "
+        f"{cfg.moe.capacity_factor}), routing held to the cuda run's: "
+        f"chunk + decode logits max|cuda - torch| = {err:.4g}, bound "
+        f"(one-ulp nudge of layer 0) = {bound:.4g}, max|logit| = "
+        f"{b.abs().max().item():.4g}, the cuda run's top-2 margins "
+        f"{[round(m, 4) for m in margins]}, greedy tokens equal: {same}; "
+        f"router probabilities max|cuda - torch| = {drift:.3g}, the nudge's "
+        f"(the router's one-ulp sensitivity) {sens:.3g}; {len(swaps)} rows "
+        f"of {sum(len(x) for x in ea)} over {len(ea)} calls where the torch "
+        f"router would choose otherwise, (call, gap) "
+        f"{[(n, f'{g:.3g}') for n, g in swaps]}; the cuda run's k-th to "
+        f"(k+1)-th probability gaps: median {float(np.median(gaps)):.3g}, "
+        f"{100 * float((gaps <= sens).mean()):.1f} % within the "
+        f"sensitivity")
+    if bound == 0.0 or sens == 0.0:
+        raise AssertionError("the nudge did not reach the logits or the "
+                             "router")
+    if err > bound or not same:
+        raise AssertionError(f"backend parity failed: {err} > {bound} or "
+                             f"greedy differs, routing held")
+    if drift > sens:
+        raise AssertionError(f"router probabilities part by {drift}, past "
+                             f"the one-ulp sensitivity {sens}")
+    if any(g > sens for _, g in swaps):
+        raise AssertionError(f"a routing choice that differs past the "
+                             f"one-ulp sensitivity {sens}: {swaps}")
+    return bound, sens
+
+
+def solo_routing(eng, requests, solo: dict) -> tuple[dict, dict]:
+    """Each request alone on ``eng``, its prefill then one decode step a
+    token along its ``solo`` tokens, as ``generate_loop`` ran it: its
+    routing by position (``by_position``) and its top-2 logit margin
+    before each token.  Its greedy tokens must be ``solo``'s."""
+    import torch
+    dev, layers = eng.device, eng.cfg.num_layers
+    margins = {}
+    with routing(layers) as rec, torch.inference_mode():
+        for r in requests:
+            prompt, toks = list(r.prompt), solo[r.rid]
+            rec.label([(r.rid, j) for j in range(len(prompt))])
+            states, lg = eng.prefill(torch.tensor([prompt],
+                                                  dtype=torch.int32,
+                                                  device=dev))
+            out = [lg]
+            for i, tok in enumerate(toks[:-1]):
+                rec.label([(r.rid, len(prompt) + i)])
+                lg, states = eng.decode(states, torch.tensor(
+                    [[tok]], dtype=torch.int32, device=dev),
+                    len(prompt) + i)
+                out.append(lg)
+            lg = torch.cat(out, dim=1).float()[0]
+            if lg.argmax(-1).tolist() != toks:
+                raise AssertionError(f"request {r.rid} alone: greedy "
+                                     f"{lg.argmax(-1).tolist()} != {toks}")
+            top2 = torch.topk(lg, 2, dim=-1).values
+            margins[r.rid] = (top2[:, 0] - top2[:, 1]).tolist()
+    return by_position(rec.calls), margins
+
+
+def no_drop_runs(sched, requests, graph_tokens: dict, solo: dict, ref: dict,
+                 margins: dict, tie: float, sens: float
+                 ) -> tuple[dict, list[str]]:
+    """At a no-drop capacity factor each row is computed alone, up to the
+    rounding of the products whose row count is the capacity.  An eager
+    copy of ``sched`` serves ``requests`` (its tokens must be the graph
+    run's, ``graph_tokens``) and another with every row routed as the
+    request alone routed it (``ref``); against the requests alone
+    (``solo``), with the routing held, the router probabilities must
+    stay within the one-ulp sensitivity ``sens``, every choice the
+    router would make otherwise must sit at a near-tie (a gap within
+    ``sens``) and a first token difference at a near-tie of the logits
+    (the solo top-2 margin within ``tie``, the one-ulp bound); a first
+    difference of the run on its own routing must be the held run's, or
+    follow a routing choice that differs.  Returns the eager tokens and
+    the failures."""
+    import numpy as np
+    layers = sched.cfg.num_layers
+    free = like(sched, cuda_graphs=False)
+    with routing(layers, sched=free):
+        own = tokens_of(free.run(requests))
+    held = like(sched, cuda_graphs=False)
+    with routing(layers, sched=held, force=held_to(ref)) as rec:
+        kept = tokens_of(held.run(requests))
+    got = by_position(rec.calls)
+    failed, rows = [], {}
+    for r in requests:
+        p, n, want = len(r.prompt), len(solo[r.rid]), solo[r.rid]
+        i_own = first_difference({0: own[r.rid]}, {0: want})[0]
+        i_held = first_difference({0: kept[r.rid]}, {0: want})[0]
+        drift, swaps = 0.0, []
+        for pos in range(p + (n - 1 if i_held is None else i_held)):
+            for layer, (pr, er) in ref[(r.rid, pos)].items():
+                pg, eg = got[(r.rid, pos)][layer]
+                drift = max(drift, float(np.abs(pg - pr).max()))
+                if (eg != er).any():
+                    swaps.append((pos, layer, swap_gap(pr, er, eg)))
+        first = min(n if i_own is None else i_own,
+                    n if i_held is None else i_held)
+        rows[r.rid] = dict(own=i_own, held=i_held, drift=float(
+            f"{drift:.3g}"), swaps=[(pos, layer, float(f"{g:.3g}"))
+                                    for pos, layer, g in swaps[:3]],
+            n_swaps=len(swaps), margin=None if i_held is None
+            else round(margins[r.rid][i_held], 4))
+        if drift > sens:
+            failed.append(f"request {r.rid}: router probabilities part by "
+                          f"{drift} > {sens}")
+        if any(g > sens for _, _, g in swaps):
+            failed.append(f"request {r.rid}: a routing choice past a "
+                          f"near-tie {swaps}")
+        if i_held is not None and margins[r.rid][i_held] > tie:
+            failed.append(f"request {r.rid}: routing held, first "
+                          f"difference at token {i_held} past a near-tie")
+        if i_own != i_held and not any(pos < p + first
+                                       for pos, _, _ in swaps):
+            failed.append(f"request {r.rid}: on its own routing it first "
+                          f"differs at {i_own}, held at {i_held}, with no "
+                          f"routing choice differing before")
+    if own != graph_tokens:
+        failed.append("eager tokens differ from the graph run's")
+    return dict(own=own, held=kept, rows=rows), failed
+
+
+def moe_measure(sched, contig, requests, smi: str) -> None:
+    """Phase 11's numbers in one mode: a decode replay's device time and
+    its split under the profiler; the expert cast, the expert products
+    and the rest of one layer's ``moe_ffn`` timed alone; a 64-token
+    prompt's prefill; the share of assignments dropped a decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serve import prng
+    mode, cfg, params = sched.cfg.pum.mode, sched.cfg, sched.params
+    dev, b = sched.device, sched.num_slots
+    replay_ms = step_device_ms(sched)
+    _, by_name = kernel_times(sched.program("decode").launch)
+    if by_name:
+        total = sum(by_name.values()) / 1e3
+        split = {name: 0.0 for name, _ in KERNEL_CLASSES}
+        split["other"] = 0.0
+        for kname, us in by_name.items():
+            cls = next((name for name, keys in KERNEL_CLASSES
+                        if any(k in kname for k in keys)), "other")
+            split[cls] += us / 1e3
+        prof = (f"under the profiler {total:.3f} ms of kernels: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / total:.1f} %)"
+            for k, v in split.items()) + f"; top: {top_kernels(by_name, 5)}")
+    else:
+        prof = "the profiler saw no device time (not measured)"
+    experts = [blk["moe"][n] for blk in params["blocks"]
+               for n in ("experts_wg", "experts_wu", "experts_wd")]
+
+    def cast_all():
+        for t in experts:
+            t.to(torch.bfloat16)
+
+    cast_ms = event_ms(cast_all, reps=3)
+    blk = params["blocks"][0]["moe"]
+    w = [blk[n].to(torch.bfloat16) for n in ("experts_wg", "experts_wu",
+                                             "experts_wd")]
+    g = torch.Generator(device=dev).manual_seed(5)
+    e, d = cfg.moe.num_experts, cfg.d_model
+    buf = torch.randn((e, 1, d), generator=g, device=dev).to(torch.bfloat16)
+
+    def products():
+        for _ in range(cfg.num_layers):
+            act = torch.nn.functional.silu(torch.bmm(buf, w[0])) * \
+                torch.bmm(buf, w[1])
+            torch.bmm(act, w[2])
+
+    bmm_ms = event_ms(products, reps=3)
+    del w
+    x = torch.randn((b, 1, d), generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        layer_ms = event_ms(lambda: moe.moe_ffn(blk, x, cfg, aux=False),
+                            reps=5)
+    rest_ms = layer_ms - (cast_ms + bmm_ms) / cfg.num_layers
+    nbytes = sum(t.numel() for t in experts) * (4 + 2)
+    log(f"moe {cfg.name} {mode} decode step ({b} slots): a graph replay "
+        f"{replay_ms:.4f} ms of device time; {prof} on {smi}")
+    log(f"moe {cfg.name} {mode} alone: the per-call expert cast of all "
+        f"{cfg.num_layers} layers {cast_ms:.3f} ms ({nbytes / 1e9:.1f} GB "
+        f"read and written, bound {nbytes / peaks(smi)[0] * 1e3:.3f} ms); "
+        f"the expert products at capacity 1 (3 bmms a layer over all {e} "
+        f"experts) {bmm_ms:.3f} ms; one layer's moe_ffn {layer_ms:.3f} ms, "
+        f"of it the router, sort, ranks, gathers and combine "
+        f"{rest_ms:.3f} ms (the layer less its cast and products) on {smi}")
+    prompt = list(range(1, 65))
+    pre = contig.program(64, [prompt], 0, prng.prng_key(1).numpy(),
+                         np.float32(0.0).view(np.int32))
+    pre.stage([prompt], 0, prng.prng_key(1).numpy(),
+              np.float32(0.0).view(np.int32))
+    prefill_ms = event_ms(pre.launch, reps=3)
+    shares = dropped_shares(sched, requests)
+    log(f"moe {cfg.name} {mode}: a 64-token prefill (contiguous admission, "
+        f"one replay) {prefill_ms:.3f} ms of device time, "
+        f"{dict(pre.launches)} launches; decode capacity "
+        f"{moe.capacity(b, cfg)} an expert, assignments dropped a decode "
+        f"step (over {len(shares)} layer calls of the trace): mean "
+        f"{100 * float(np.mean(shares)):.1f} %, max "
+        f"{100 * max(shares):.1f} % on {smi}")
+
+
+def dropped_shares(sched, requests) -> list[float]:
+    """The share of assignments dropped at each MoE layer of each decode
+    step of ``requests`` served by an eager copy of ``sched``, idle
+    rows' assignments included (they take capacity too)."""
+    from repro_torch.models import moe
+    eager = like(sched, cuda_graphs=False)
+    with routing(sched.cfg.num_layers, sched=eager) as rec:
+        eager.run(requests)
+    e = sched.cfg.moe.num_experts
+    return [float((moe.dispatch_slots(c["idx"], e) >= c["cap"]).float()
+                  .mean()) for c in rec.calls if c["decode"]]
+
+
+def moe_run(mode: str, smi: str) -> dict[str, int]:
+    """Phase 11 in one mode: the CLI paged and contiguous (its main
+    paths, whose launches are returned with the static batch's), then
+    the gates at the config's own capacity factor and at E / k."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   oracle_completion)
+    t0 = time.perf_counter()
+    launches: dict[str, int] = {}
+    runs = {}
+    for layout, args in (("paged", OLMOE_ARGS),
+                         ("contiguous", OLMOE_CONTIG_ARGS)):
+        registry.reset_launches()
+        res = serve.main(args + ["--pum-mode", mode])
+        torch.cuda.synchronize()
+        counts = dict(registry.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        sched = res["scheduler"]
+        launch_gate(mode, sched.cfg, sched.decode_steps,
+                    sched.prefill_chunks, counts, paged=sched.paged)
+        progs = sched.step_programs()
+        built = [progs["decode"], *next(v for k, v in progs.items()
+                                        if k != "decode").values()]
+        comps = res["completions"]
+        vp = sched.params["embed"].shape[0]
+        if len(comps) != 6 or any(
+                len(c.tokens) != 16 or not all(0 <= t < vp for t in c.tokens)
+                for c in comps.values()) \
+                or any(n != 1 for n in built) \
+                or res["graphs"] != len(built):
+            raise AssertionError(f"moe {mode} {layout}: completions "
+                                 f"{tokens_of(comps)}, programs {progs}, "
+                                 f"{res['graphs']} graphs")
+        log(f"moe {mode} {layout}: {sched.cfg.name} {sched.cfg.num_layers} "
+            f"layers d_model {sched.cfg.d_model}, {sched.cfg.moe.num_experts} "
+            f"experts top-{sched.cfg.moe.top_k}, capacity factor "
+            f"{sched.cfg.moe.capacity_factor}; 6 requests x 16 tokens, "
+            f"{sched.decode_steps} decode steps + {sched.prefill_chunks} "
+            f"prefill {'chunks' if sched.paged else 'prompts'}; launches "
+            f"{counts} (replays counted); programs {progs}, {res['graphs']} "
+            f"graphs built in {res['build_s']:.2f} s; peak_mem_GB "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        runs[layout] = dict(tokens=tokens_of(comps),
+                            requests=res["requests"])
+        if layout == "paged":
+            runs[layout]["sched"] = sched
+            del res, sched
+            continue
+        # one model on the card: the contiguous scheduler again on the
+        # paged run's weights (the same seed, so the same weights)
+        del res, sched, comps
+        gc.collect()
+        torch.cuda.empty_cache()
+        p = runs["paged"]["sched"]
+        runs[layout]["sched"] = ContinuousBatchingScheduler(
+            p.cfg, p.params, num_slots=p.num_slots, max_len=p.max_len,
+            kv_block_size=0, device=p.device)
+    reqs = runs["paged"]["requests"]
+    gates, again, eager = {}, {}, {}
+    for layout, run in runs.items():
+        sched = run["sched"]
+        # the trace again from the state a fresh scheduler starts in (the
+        # idle rows take capacity, so a run depends on what the last one
+        # left in them)
+        sched._reset()
+        again[layout] = timed_run(sched, reqs)
+        progs = sched.step_programs()
+        sched._reset()
+        twice = timed_run(sched, reqs)
+        eager[layout] = timed_run(like(sched, cuda_graphs=False), reqs)
+        gates[f"{layout}: the same trace from a fresh state gives the CLI's "
+              f"tokens, twice, building nothing after its first"] = (
+            again[layout]["tokens"] == run["tokens"] == twice["tokens"]
+            and sched.step_programs() == progs and progs["decode"] == 1)
+        gates[f"{layout}: graphs and eager give the same tokens and "
+              f"launches"] = (eager[layout]["tokens"] == run["tokens"]
+                              and eager[layout]["launches"]
+                              == twice["launches"])
+        for r in (again[layout], twice, eager[layout]):
+            launch_gate(mode, sched.cfg, r["steps"], r["chunks"],
+                        r["launches"], paged=sched.paged)
+        bad = nonfinite(sched)
+        gates[f"{layout}: every step's last logits finite"] = not bad
+    paged, contig = runs["paged"]["sched"], runs["contiguous"]["sched"]
+    failed = [k for k, ok in gates.items() if not ok]
+    for layout in runs:
+        log(f"moe {mode} {layout}: decode_ms_per_step graphs / eager "
+            f"{again[layout]['decode_ms']:.3f} / "
+            f"{eager[layout]['decode_ms']:.3f}, tokens_per_s "
+            f"{again[layout]['tokens_per_s']:.2f} / "
+            f"{eager[layout]['tokens_per_s']:.2f}, peak_mem_GB "
+            f"{again[layout]['peak_gb']:.2f} on {smi}")
+    log(f"moe {mode} at the own capacity factor: paged and contiguous "
+        f"first differ at {first_difference(runs['paged']['tokens'], runs['contiguous']['tokens'])} "
+        f"(their chunks and prompts drop differently; not a gate); gates "
+        f"failed: {failed}")
+    if failed:
+        raise AssertionError(f"moe {mode}: {failed}")
+    moe_backend_parity(paged)
+    moe_measure(paged, contig, reqs, smi)
+    # at E / k nothing is dropped: each row alone again, up to the float
+    # rounding of the expert products, whose row count is the capacity
+    nd = no_drop(paged.cfg)
+    scheds = {
+        "paged": ContinuousBatchingScheduler(
+            nd, paged.params, num_slots=paged.num_slots,
+            max_len=paged.max_len, kv_block_size=16, chunked_prefill=True,
+            device=paged.device),
+        "contiguous": ContinuousBatchingScheduler(
+            nd, paged.params, num_slots=paged.num_slots,
+            max_len=paged.max_len, kv_block_size=0, device=paged.device)}
+    nd_tokens = {k: timed_run(s, reqs)["tokens"] for k, s in scheds.items()}
+    tie, sens = moe_backend_parity(scheds["paged"])
+    t1 = time.perf_counter()
+    eng = scheds["paged"].engine
+    solo = {r.rid: oracle_completion(eng, r) for r in reqs}
+    solo_s = time.perf_counter() - t1
+    ref, margins = solo_routing(eng, reqs, solo)
+    failed = []
+    for layout, s in scheds.items():
+        res, bad = no_drop_runs(s, reqs, nd_tokens[layout], solo, ref,
+                                margins, tie, sens)
+        failed += [f"{layout}: {b}" for b in bad]
+        log(f"moe {mode} no drops, {layout}, against each request alone "
+            f"(routing held to its own, then free; by request: first "
+            f"difference free / held, solo top-2 margin there, router "
+            f"probabilities' max drift, routing choices that would differ "
+            f"and the first three (position, layer, gap)): "
+            f"{res['rows']}")
+    nd_tokens["solo"] = solo
+    diff = {r.rid: next((i for i, t in enumerate(zip(
+        *(run[r.rid] for run in nd_tokens.values()))) if len(set(t)) > 1),
+        None) for r in reqs}
+    n = sum(len(t) for t in solo.values())
+    agree = sum(len(solo[rid]) if i is None else i for rid, i in diff.items())
+    every = np.concatenate([np.asarray(m) for m in margins.values()])
+    gaps = k_gaps(np.stack([pr for by_layer in ref.values()
+                            for pr, _ in by_layer.values()]), nd.moe.top_k)
+    log(f"moe {mode} at capacity factor {nd.moe.capacity_factor} (no drops): "
+        f"paged, contiguous and each request alone through generate_loop "
+        f"(cuda backend, solo runs {solo_s:.1f} s) agree on {agree} of {n} "
+        f"tokens before their first differences {diff}; near-tie "
+        f"thresholds with the routing held (backend parity at this "
+        f"factor): logits {tie:.4g}, router {sens:.3g}; the solo runs' "
+        f"top-2 logit margins: median {float(np.median(every)):.4g}, "
+        f"{100 * float((every <= tie).mean()):.1f} % of {every.size} within "
+        f"{tie:.4g}; their router k-th to (k+1)-th gaps: median "
+        f"{float(np.median(gaps)):.3g}, {100 * float((gaps <= sens).mean()):.1f}"
+        f" % of {gaps.size} within {sens:.3g}; gates failed: {failed}")
+    if failed:
+        raise AssertionError(f"moe {mode} no-drop: {failed}")
+    del runs, run, paged, contig, scheds, eng, sched, p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in static_phase(mode, smi, OLMOE_STATIC_ARGS,
+                             temps=(0.0,)).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe {mode}: phase in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated")
+    return launches
+
+
+def granite_run(smi: str) -> dict[str, int]:
+    """granite-moe-1b-a400m at full width (24 layers, 32 experts top-8,
+    GQA G = 2, head dim 64, tied embeddings) through the CLI, paged, in
+    ``pum``: completions, launches, programs built once, the same trace
+    from a fresh state the same tokens building nothing, logits finite;
+    a decode replay's device ms."""
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    registry.reset_launches()
+    res = serve.main(GRANITE_ARGS + ["--pum-mode", "pum"])
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched = res["scheduler"]
+    cfg = sched.cfg
+    launch_gate("pum", cfg, sched.decode_steps, sched.prefill_chunks,
+                launches)
+    first = tokens_of(res["completions"])
+    progs = sched.step_programs()
+    sched._reset()
+    again = timed_run(sched, res["requests"])
+    launch_gate("pum", cfg, again["steps"], again["chunks"],
+                again["launches"])
+    gates = {
+        "6 requests x 16 tokens": len(first) == 6 and all(
+            len(t) == 16 for t in first.values()),
+        "each program built once, as a graph": all(
+            n == 1 for n in [progs["decode"], *progs["chunk"].values()])
+        and res["graphs"] == 1 + len(progs["chunk"]),
+        "the same trace from a fresh state gives the same tokens, building "
+        "nothing": again["tokens"] == first
+        and sched.step_programs() == progs,
+        "every step's last logits finite": not nonfinite(sched),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    replay_ms = step_device_ms(sched)
+    log(f"moe {cfg.name} pum paged: {cfg.num_layers} layers d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}; {again['steps']} decode steps + "
+        f"{again['chunks']} chunks; launches {launches} (first run); "
+        f"a decode replay {replay_ms:.4f} ms of device time, "
+        f"decode_ms_per_step {again['decode_ms']:.3f}, tokens_per_s "
+        f"{again['tokens_per_s']:.2f}, peak_mem_GB {again['peak_gb']:.2f}; "
+        f"gates failed: {failed} on {smi}")
+    if failed:
+        raise AssertionError(f"granite: {failed}")
+    del res, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(smi: str) -> dict[str, int]:
+    """Phase 11; returns each kernel's launches on its main paths."""
+    import torch
+    t0 = time.perf_counter()
+    # the router's f32 matmul must not round its inputs to TF32
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the MoE router runs in "
+                             "f32 (models/moe.py)")
+    launches: dict[str, int] = {}
+    for run in (lambda: moe_run("pum", smi), lambda: moe_run("int8", smi),
+                lambda: granite_run(smi)):
+        for k, v in run().items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"moe: phase 11 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_moe_kernels(dev, gpu_name: str) -> dict[str, list[dict]]:
+    """Phase 3's checks at the MoE family's shapes: K1 and K2 at
+    OLMoE-1B-7B's 2048 x 2048 projections (a decode step's M = 4 and a
+    chunk's M = 16), K3 at both head layouts, K3's duplicate-trash
+    store.  Returns their rows of the kernels line."""
+    mvm = mvm_sweep(dev, OLMOE_MVM, OLMOE_LAYERS, "OLMoE-1B-7B",
+                    sorted(STEP_ROWS))
+    attn = check_attention(dev, gpu_name, layouts=MOE_HEADS)
+    check_trash_store(dev)
+    return {"bitslice_mvm_scaled": [c["K1"] for c in mvm],
+            "bitslice_mvm": [c["K2"] for c in mvm],
+            "paged_attention": attn}
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -2363,7 +3168,7 @@ OFF_MAIN_PATH = {"gf2_mvm"}
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
-                                       "xlstm"], default=None)
+                                       "xlstm", "moe"], default=None)
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -2418,11 +3223,21 @@ def main(argv=None) -> int:
         log(f"phase 10 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "moe":
+        cases = check_moe_kernels(dev, gpu_name)
+        moe_launches = moe_phase(smi)
+        log(json.dumps({"kernels": {"launches": moe_launches,
+                                    "moe_shapes": cases}}))
+        log(f"phase 11 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     # -- 3. kernels
     rows = check_mvm(dev)
     for name, cases in xlstm_rows(check_xlstm_mvm(dev)).items():
         rows[name]["xlstm_shapes"] = cases
-    rows["paged_attention"] = check_attention(dev, gpu_name)
+    rows["paged_attention"] = attention_row(check_attention(dev, gpu_name))
+    for name, cases in check_moe_kernels(dev, gpu_name).items():
+        rows[name]["moe_shapes"] = cases
     rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
@@ -2451,6 +3266,9 @@ def main(argv=None) -> int:
     for k, v in xlstm_phase(smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 10 done at {time.perf_counter() - start:.1f} s")
+    for k, v in moe_phase(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 11 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -15,8 +15,9 @@ groups: layer ``g * period + j`` is group ``g`` of ``blocks[j]``.  That
 is the layout of any period: an xLSTM stack's (period 2 in the reduced
 configs, 4 at full width, 5 where ``num_layers=10`` makes it ragged)
 comes across with its mixer params, bias leaves and packed ``[d, 4]``
-gates as a dense one's.  Packed planes keep the JAX ``[S, K, N]``
-layout.
+gates as a dense one's, and an MoE layer with its ``[G, E, D, F]``
+expert stacks and its f32 router (never packed) as ``[E, D, F]`` and
+``[D, E]`` tensors.  Packed planes keep the JAX ``[S, K, N]`` layout.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get(name)`` returns the full
 published config, ``get_reduced(name)`` a same-family miniature for CPU
 tests.  It carries the configs the port serves at full width: the
-dense Qwen2.5-3B and the recurrent xLSTM-350M (mLSTM and sLSTM
-mixers)."""
+dense Qwen2.5-3B, the recurrent xLSTM-350M (mLSTM and sLSTM mixers),
+and the MoE family's OLMoE-1B-7B and granite-moe-1b-a400m (attention
+with a top-k routed expert FFN in every layer)."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ from repro_torch.config import ModelConfig
 ARCH_IDS = {
     "qwen2.5-3b": "qwen2_5_3b",
     "xlstm-350m": "xlstm_350m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 

@@ -8,7 +8,8 @@ forward call (the paper's program-once, reuse-many argument):
     kernel reads), the recombined int8 weight ``[..., K, N]`` and the
     dequantisation scale.
   * :func:`pack_weight` — one float weight to a ``PackedLinear``.
-  * :func:`prepack_params` — every ``{"w": ...}`` linear of a param tree.
+  * :func:`prepack_params` — every ``{"w": ...}`` linear of a param tree
+    but the MoE router, which runs in f32 in every mode.
 
 Bit for bit the JAX package's ``core/prepack.py``.
 """
@@ -80,19 +81,27 @@ def _packable(v: Any) -> bool:
             and v.is_floating_point())
 
 
+# linears that deliberately run outside the PUM path and must stay float:
+# the MoE router executes in f32 whatever the mode (models/moe.py)
+_SKIP_LINEARS = ("router",)
+
+
 def prepack_params(params: Any, cfg: PUMConfig) -> Any:
-    """Walk a param tree, packing every linear weight (``{"w": ...}``).
-    A no-op for ``mode="bf16"``; embeddings and other keys stay float."""
+    """Walk a param tree, packing every linear weight (``{"w": ...}``)
+    but those of ``_SKIP_LINEARS``.  A no-op for ``mode="bf16"``;
+    embeddings, expert stacks and other keys stay float."""
     if cfg.mode == "bf16":
         return params
 
-    def walk(node):
+    def walk(node, name=None):
         if isinstance(node, dict):
-            return {k: (pack_weight(v, cfg) if k == "w" and _packable(v)
-                        else walk(v))
+            skip = name in _SKIP_LINEARS
+            return {k: (pack_weight(v, cfg)
+                        if k == "w" and not skip and _packable(v)
+                        else walk(v, k))
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
+            return type(node)(walk(v, name) for v in node)
         return node
 
     return walk(params)

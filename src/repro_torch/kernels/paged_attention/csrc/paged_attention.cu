@@ -8,7 +8,10 @@
 //     positions past the table width go to the trash block 0, as
 //     models/attention.py's paged_write_cells does (the TPU kernel clips
 //     the column instead; the two agree on every state the scheduler
-//     reaches);
+//     reaches); a trash cell that several (row, position) pairs write
+//     (every row not decoding writes there) takes the last one's value in
+//     row-major order, as the plain version's sequential scatter, so it
+//     holds the same bits whatever order the threads run in;
 //   * reads the row's keys through the *read* table, cropped to T;
 //   * scores in f32 times 1/sqrt(hd), masks kpos <= qpos with -1e30,
 //     applies the optional tanh softcap, takes a plain softmax (max, exp,
@@ -151,15 +154,33 @@ __device__ __forceinline__ int write_block(const int* write_table, int b,
   return col < W ? write_table[(size_t)b * W + col] : 0;
 }
 
+// whether a later (row, position) of the call, in row-major order,
+// writes the trash cell (0, off) too; only block 0 is shared between rows
+// (the rows not decoding and the positions past a table's width all
+// write there), and its last writer wins, as in the plain version
+__device__ __forceinline__ bool overwritten_later(
+    const int* write_table, const int* cache_index, int b, int s, int off,
+    int B, int S, int bs, int W) {
+  for (int j = b * S + s + 1; j < B * S; ++j) {
+    const int pos = cache_index[j / S] + j % S;
+    if (pos % bs == off && write_block(write_table, j / S, pos, bs, W) == 0)
+      return true;
+  }
+  return false;
+}
+
 // one element of a row's new cells into the pool
 template <typename QT>
 __device__ __forceinline__ void store_cell(
     const QT* k_new, const QT* v_new, bf16* k_pool, bf16* v_pool,
-    const int* write_table, int b, int s, int h, int d, int ci, int S,
-    int KV, int hd, int bs, int W) {
+    const int* write_table, const int* cache_index, int b, int s, int h,
+    int d, int B, int S, int KV, int hd, int bs, int W) {
   const size_t src = (((size_t)b * S + s) * KV + h) * hd + d;
-  const int pos = ci + s;
+  const int pos = cache_index[b] + s;
   const int phys = write_block(write_table, b, pos, bs, W);
+  if (phys == 0 && overwritten_later(write_table, cache_index, b, s,
+                                     pos % bs, B, S, bs, W))
+    return;
   const size_t dst = (((size_t)phys * bs + pos % bs) * KV + h) * hd + d;
   k_pool[dst] = to_bf16(to_f(k_new[src]));
   v_pool[dst] = to_bf16(to_f(v_new[src]));
@@ -180,8 +201,8 @@ __global__ void store_kernel(const QT* __restrict__ k_new,
     const int h = (int)(i / hd % KV);
     const int s = (int)(i / ((size_t)hd * KV) % S);
     const int b = (int)(i / ((size_t)hd * KV * S));
-    store_cell(k_new, v_new, k_pool, v_pool, write_table, b, s, h, d,
-               cache_index[b], S, KV, hd, bs, W);
+    store_cell(k_new, v_new, k_pool, v_pool, write_table, cache_index, b, s,
+               h, d, B, S, KV, hd, bs, W);
   }
 }
 

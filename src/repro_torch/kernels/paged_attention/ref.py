@@ -3,6 +3,8 @@
 Op for op the composition the JAX package's serving stack runs
 (``models.attention``: ``paged_write_cells``, the pool scatter, the
 block-table gather and ``_plain_attention``), on the same layouts.  The
+scatter resolves cells written twice in one call as the reference's
+does on the CPU, the last writer winning (:func:`write_cells`).  The
 model's ``torch`` backend runs the same pieces, updating the pools in
 place; :func:`paged_attention_ref` returns new pools instead, so a
 comparison can run it beside the kernel on the same inputs.
@@ -31,6 +33,25 @@ def paged_write_cells(write_table: torch.Tensor, cache_index: torch.Tensor,
                         torch.clamp(cols, 0, w - 1))
     phys = torch.where(cols < w, phys, torch.zeros_like(phys))
     return phys, pos % block_size
+
+
+def write_cells(pool: torch.Tensor, phys: torch.Tensor, off: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``pool[phys, off] = new`` in place: [B, S] cells of a [NB, bs,
+    ...] pool from [B, S, ...] values.  Where cells repeat (every row not
+    decoding writes to the trash block 0), the last (row, position) in
+    row-major order wins, as the reference's sequential scatter leaves
+    it on the CPU, and so on every device: each write carries the value
+    of its cell's last writer, so the order of the writes does not
+    matter."""
+    n = phys.numel()
+    cell = (phys.to(torch.int64) * pool.shape[1] + off).reshape(n)
+    order = torch.argsort(cell, stable=True)
+    cells = cell[order]
+    last = order[torch.searchsorted(cells, cells, right=True) - 1]
+    flat = pool.view((-1,) + tuple(pool.shape[2:]))
+    flat[cells] = new.reshape((n,) + tuple(new.shape[2:]))[last].to(
+        pool.dtype)
 
 
 def softmax(scores: torch.Tensor, softcap: float) -> torch.Tensor:
@@ -91,8 +112,8 @@ def paged_attention_ref(q, k_new, v_new, k_pool, v_pool, block_table,
                                   k_pool.shape[1])
     k_pool = k_pool.clone()
     v_pool = v_pool.clone()
-    k_pool[phys, off] = k_new.to(k_pool.dtype)
-    v_pool[phys, off] = v_new.to(v_pool.dtype)
+    write_cells(k_pool, phys, off, k_new)
+    write_cells(v_pool, phys, off, v_new)
     k_all = gather_rows(k_pool, block_table, kv_len)
     v_all = gather_rows(v_pool, block_table, kv_len)
     mask = causal_mask(cache_index, s, k_all.shape[1])

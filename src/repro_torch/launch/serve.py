@@ -9,6 +9,12 @@ continuous-batching scheduler over a synthetic trace, or a static batch.
 has no KV to page, so its requests take 0 blocks of the pool and only
 its prompts' chunking follows ``--kv-block-size``.
 
+``--arch olmoe-1b-7b`` and ``--arch granite-moe-1b-a400m`` serve the
+MoE family: attention through the MVM and paged-attention kernels, the
+f32 router and the float experts (cast to bf16 on every call) beside
+them, at the config's own capacity factor, whose drops couple the rows
+of a step.
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through

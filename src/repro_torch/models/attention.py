@@ -28,7 +28,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (NEG_INF, causal_mask,
                                                      gather_rows,
                                                      paged_write_cells,
-                                                     plain_attention)
+                                                     plain_attention,
+                                                     write_cells)
 from repro_torch.kernels.registry import KernelBackend
 from repro_torch.models import layers
 
@@ -93,8 +94,8 @@ def _paged_update_and_gather(cache: Params, k: torch.Tensor,
         write_table = block_table
     phys, off = paged_write_cells(write_table, cache_index, k.shape[1],
                                   cache["k_pool"].shape[1])
-    cache["k_pool"][phys, off] = k.to(cache["k_pool"].dtype)
-    cache["v_pool"][phys, off] = v.to(cache["v_pool"].dtype)
+    write_cells(cache["k_pool"], phys, off, k)
+    write_cells(cache["v_pool"], phys, off, v)
     return (gather_rows(cache["k_pool"], block_table, kv_len),
             gather_rows(cache["v_pool"], block_table, kv_len))
 

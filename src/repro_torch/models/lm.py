@@ -1,7 +1,8 @@
 """The assembled language model: embeddings -> block stack -> head.
 
-Dense decoders (Qwen2.5-3B) and the xLSTM family (xLSTM-350M), and
-the small test configs of both.  Params are per layer —
+Dense decoders (Qwen2.5-3B), the xLSTM family (xLSTM-350M) and the
+MoE family (OLMoE-1B-7B, granite-moe-1b-a400m: attention with routed
+experts), and the small test configs of each.  Params are per layer —
 ``params["blocks"][l]`` — and a Python loop over layers takes the place
 of the JAX package's ``scan`` over stacked groups; decode states are per
 layer too (``states[l]``): a KV cache or pool, or a recurrent mixer's
@@ -24,7 +25,8 @@ Params = dict[str, Any]
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: str | torch.device = "cuda") -> Params:
     """Random weights drawn on ``device`` from ``generator`` (which must
-    live on that device) with the JAX package's distributions."""
+    live on that device) with the JAX package's distributions; an MoE
+    layer's router and f32 expert stacks [E, D, F] / [E, F, D] too."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
     params: Params = {
@@ -43,7 +45,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def prepack_for_serving(params: Params, cfg: ModelConfig) -> Params:
     """Pack every linear weight once for inference (crossbar
-    programming); a no-op for bf16.  The embedding stays float."""
+    programming); a no-op for bf16.  The embedding, an MoE layer's
+    router (f32 in every mode) and its expert stacks stay float."""
     return prepack.prepack_params(params, cfg.pum)
 
 

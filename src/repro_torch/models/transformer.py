@@ -1,10 +1,11 @@
 """Decoder block assembly: per-layer kind selection and the blocks the
 port serves.  The mixers are attention and the xLSTM family's mLSTM and
-sLSTM; the FFN is a dense MLP, or none (xLSTM's ``d_ff`` is 0).  Layer
-``l`` takes the kinds of position ``l % period(cfg)`` of the repeating
-pattern, as the reference's grouped stack does.  Mamba mixers, MoE FFNs,
-cross-attention, encoder-decoder and vision models are not ported yet
-and raise ``NotImplementedError``."""
+sLSTM; the FFN is a dense MLP, the MoE family's routed experts
+(``models/moe.py``, beside attention), or none (xLSTM's ``d_ff`` is 0).
+Layer ``l`` takes the kinds of position ``l % period(cfg)`` of the
+repeating pattern, as the reference's grouped stack does.  Mamba
+mixers, cross-attention, encoder-decoder and vision models are not
+ported yet and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Any
@@ -12,7 +13,7 @@ from typing import Any
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import attention, layers, mlp, xlstm
+from repro_torch.models import attention, layers, mlp, moe, xlstm
 
 Params = dict[str, Any]
 
@@ -66,10 +67,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"ported yet")
     for j in range(cfg.num_layers):
         mk, fk = layer_kinds(cfg, j)
-        if mk not in ("attn",) + RECURRENT or fk not in ("mlp", "none"):
+        dense = mk in ("attn",) + RECURRENT and fk in ("mlp", "none")
+        if not dense and (mk, fk) != ("attn", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {j} is ({mk}, {fk}); only attention, "
-                f"mLSTM and sLSTM mixers with dense MLPs are ported yet")
+                f"mLSTM and sLSTM mixers with dense MLPs, and attention "
+                f"with MoE FFNs, are ported yet")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
@@ -83,9 +86,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
         p["mlstm"] = xlstm.init_mlstm(gen, cfg, device)
     else:
         p["slstm"] = xlstm.init_slstm(gen, cfg, device)
-    if fk == "mlp":
+    if fk != "none":
         p["norm2"] = layers.make_norm(cfg, device)
+    if fk == "mlp":
         p["mlp"] = mlp.init_mlp(gen, cfg, device=device)
+    elif fk == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, device)
     return p
 
 
@@ -126,7 +132,8 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (x, state).  A KV cache in ``state`` is updated in place;
     a recurrent state is written in place too (``commit``), or left as
-    it was and its successor returned (``commit=False``)."""
+    it was and its successor returned (``commit=False``).  An MoE FFN's
+    aux losses are not computed (serving needs none)."""
     mk, _ = layer_kinds(cfg, layer_idx)
     h = layers.norm_apply(p["norm1"], x, cfg)
     if mk == "attn":
@@ -145,4 +152,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if "mlp" in p:
         h = layers.norm_apply(p["norm2"], x, cfg)
         x = x + mlp.mlp(p["mlp"], h, cfg)
+    elif "moe" in p:
+        h = layers.norm_apply(p["norm2"], x, cfg)
+        x = x + moe.moe_ffn(p["moe"], h, cfg, aux=False)[0]
     return x, state

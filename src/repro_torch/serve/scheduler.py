@@ -68,9 +68,26 @@ than the solo loop's plain attention, so the two can part at
 near-ties; a request served alone through the scheduler still gives
 its tokens in any batch.
 
-This slice serves the dense family and the xLSTM family (mLSTM and
-sLSTM mixers) at any temperature, each request with its own seed, and
-its draws are the reference's (``serve.prng`` reproduces its threefry
+MoE configs schedule fine but are excluded from the guarantee: expert
+capacity is shared across the batch, so dropping is inherently coupled.
+Every slot flows through the decode step, live or not, so an idle row's
+hidden state takes expert capacity too, and at a capacity of one slot
+an expert (OLMoE-1B-7B's at 4 slots) it decides which live assignments
+are dropped.  A row not decoding reads and writes the trash block 0 of
+the paged pool; where several write one trash cell in a step, the last
+row wins on every backend (``kernels/paged_attention``), as the
+reference's scatter on the CPU, so the trash block, and through the
+capacity the live rows' tokens, are the same from run to run.  They
+depend on what the previous run left in the idle rows, which
+:meth:`ContinuousBatchingScheduler.run` does not reset (nor does the
+reference's).  At a capacity factor of ``E / k`` or more no assignment
+is dropped, and a row depends on its co-tenants only through the
+rounding of the float expert products, whose row count is the
+capacity (a float GEMM's rows may differ by an ulp between row counts).
+
+This slice serves the dense family, the xLSTM family (mLSTM and sLSTM
+mixers) and the MoE family at any temperature, each request with its
+own seed, and its draws are the reference's (``serve.prng`` reproduces its threefry
 keys).  Prefix caching, speculative decoding, tensor parallelism and
 fault-injection hooks of the JAX package are not ported yet; their
 arguments raise ``NotImplementedError`` (or, with the contiguous

@@ -128,6 +128,38 @@ def test_paged_attention_kernel_matches_plain(dev, s, softcap, q_dtype):
                            *args[5:], kv_len=w * bs - 3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16])
+def test_paged_attention_duplicate_trash_cells_take_the_last_row(dev, s):
+    """Inactive rows (all-trash tables) at depths that meet in one trash
+    cell, and a row writing past its table width: the kernel's pools
+    equal the plain version's bit for bit, trash block included, the
+    last row's value in each shared cell, in every call."""
+    rng = np.random.default_rng(40 + s)
+    b, kvh, grp, hd, bs, w = 6, 16, 1, 128, 16, 3
+    nb = 1 + 2 * w
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    table = torch.zeros((b, w), dtype=torch.int32, device=dev)
+    table[0] = torch.arange(1, w + 1)
+    table[3] = torch.arange(w + 1, 2 * w + 1)
+    ci = torch.tensor([7, 3, 19, w * bs - 2 if s > 1 else 9, 35, 51],
+                      dtype=torch.int32, device=dev)
+    args = [rnd(b, s, kvh, grp, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
+            rnd(nb, bs, kvh, hd), rnd(nb, bs, kvh, hd), table,
+            table.clone(), ci]
+    rk, rv, _ = pa.paged_attention(*args, kv_len=w * bs, backend="torch")
+    assert torch.equal(rk[0, 3], args[1][5, 0])       # row 5 is the last
+    for _ in range(3):
+        kp, vp = args[3].clone(), args[4].clone()
+        pa.paged_attention(*args[:3], kp, vp, *args[5:], kv_len=w * bs)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, rk) and torch.equal(vp, rv)
+
+
 # (K, N): K within one tile (no split), K not a multiple of the 64-row
 # tile or of the 16-byte x row (x padded; split over K from 1000 on),
 # the narrow projections (split over K in a cluster of 8 and of 16),
