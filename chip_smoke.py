@@ -29,7 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    past-width one write the same trash cells (S = 1 and 16): its pools
    bit-equal to the plain version's, the last row's value in each
    shared cell, as the reference's sequential scatter leaves it.  Every
-   K3 case holds the pools bit for bit, trash block included.
+   K3 case holds the pools bit for bit, trash block included.  The same
+   for Jamba-v0.1's 44 projections of a period (in 4096 x 16384, x 8192
+   x 288, dt 256 x 8192, out 8192 x 4096, q/o 4096 x 4096, k/v 4096 x
+   1024, gate/up 4096 x 14336, down 14336 x 4096; M = 4 and 16) and K3
+   at its layout (KV = 8, G = 4, hd = 128) at the same (S, T) cases.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -180,21 +184,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    products and the rest of one layer's ``moe_ffn`` timed alone, a
    64-token prefill's device ms, the share of assignments dropped a
    decode step, peak memory and the phase's seconds.
-12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-11) must have launched there;
+12. hybrid — Jamba-v0.1 at full width cut to one period of 8 layers (7
+   Mamba + 1 attention mixers, 4 dense MLPs + 4 MoE FFNs of 16 experts
+   top-2; 45.1 GB of f32 expert stacks; its 32 layers would hold 180 GB),
+   random weights, in ``pum`` and ``int8``: the CLI (``main(cfg=...)``)
+   on phase 4's trace paged and with ``--kv-block-size 0``, at the
+   config's own capacity factor 1.25, gated as phase 11: 44 MVM launches
+   a step, chunk or prompt (none for the router, the experts, the conv
+   or the recurrence), 1 K3 a paged one and none contiguous; each program
+   built once; the same trace from a fresh state the CLI's tokens twice,
+   building nothing; graphs == eager in tokens and launches; the SSM
+   states and every step's last logits finite; backend parity with the
+   routing held; at E / k against every request alone (phase 11's
+   no-drop gates); the static batch (scan == ``--loop``, t = 0).  Then
+   the same period with its MoE FFNs made dense (all 8 MLPs), ``pum``,
+   phase 8's sampled requests: each completion equal to its request
+   alone through ``generate_loop`` on ``cuda`` (contiguous windows) and
+   on the ``torch`` backend (paged), bit for bit; paged on ``cuda`` the
+   first differences (K3's order) counted.  Prints phase 11's numbers
+   (a decode replay's split, the expert cast and products alone, a
+   64-token prefill, the dropped share), the Mamba layers' conv and
+   recurrence timed alone and their share of a replay, the SSM state
+   bytes a slot, the KV bytes a token, peak memory and the phase's
+   seconds.
+13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-12) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
    (``cnn_shapes``), K1's and K2's their rows at M = 4096
    (``prefill_shape``), at xLSTM-350M's shapes (``xlstm_shapes``) and
-   at OLMoE-1B-7B's (``moe_shapes``), K3's at the MoE head layouts
-   (``moe_shapes``).
+   at OLMoE-1B-7B's (``moe_shapes``) and at Jamba-v0.1's
+   (``hybrid_shapes``), K3's at the MoE head layouts (``moe_shapes``)
+   and at Jamba's (``hybrid_shapes``).
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
 ``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
 phases 1, 2 and 9, ``--only xlstm`` phases 1, 2, phase 3's xLSTM
 shapes and 10, ``--only moe`` phases 1, 2, phase 3's MoE shapes and
-11.
+11, ``--only hybrid`` phases 1, 2, phase 3's Jamba shapes and 12.
 """
 from __future__ import annotations
 
@@ -801,18 +829,22 @@ MVM_OF_MODE = {"pum": "bitslice_mvm_scaled", "int8": "bitslice_mvm",
                "bf16": None}
 
 
+# MVM launches of each mixer kind in a forward pass: q, k, v and o of
+# attention, the in, x, dt and out projections of Mamba, the five of an
+# mLSTM (qkv, i, f, output gate, out) or sLSTM (z, i, f, o, out) layer
+MIXER_MVM = {"attn": 4, "mamba": 4, "mlstm": 5, "slstm": 5}
+
+
 def per_pass(cfg) -> tuple[int, int]:
-    """(MVM launches, attention layers) of one forward pass: q, k, v and
-    o of an attention layer, the five projections of an mLSTM (qkv, i,
-    f, output gate, out) or sLSTM (z, i, f, o, out) layer, and the MLP's
-    (gate, up, down when gated): 7 a Qwen2.5-3B layer, 5 an xLSTM-350M
-    one (it has no MLP)."""
+    """(MVM launches, attention layers) of one forward pass: the mixer's
+    (``MIXER_MVM``) and the MLP's (gate, up, down when gated; an MoE
+    FFN's router and experts are float products): 7 a Qwen2.5-3B layer,
+    5 an xLSTM-350M one (it has no MLP), 44 a period of Jamba-v0.1."""
     from repro_torch.models import transformer
     kinds = [transformer.layer_kinds(cfg, j) for j in range(cfg.num_layers)]
     mlp = 3 if cfg.activation == "silu" else 2
     attn = sum(mk == "attn" for mk, _ in kinds)
-    mvm = sum((4 if mk == "attn" else 5) + mlp * (fk == "mlp")
-              for mk, fk in kinds)
+    mvm = sum(MIXER_MVM[mk] + mlp * (fk == "mlp") for mk, fk in kinds)
     return mvm, attn
 
 
@@ -1976,12 +2008,13 @@ def contiguous_long(sched, reqs, mode: str, smi: str) -> None:
 
 
 def static_phase(mode: str, smi: str, args=None,
-                 temps=STATIC_TEMPS) -> dict[str, int]:
+                 temps=STATIC_TEMPS, cfg=None) -> dict[str, int]:
     """The CLI's static batch (``--batch-slots 0``) with the compiled
     token loop and with ``--loop``, at each of STATIC_TEMPS: gated equal
     token for token, the same seed the same tokens with nothing new
     built, another step count the same two programs, graphs and eager
-    equal, 252 MVM launches a forward and no attention kernel.  Returns
+    equal, 252 MVM launches a forward and no attention kernel.  ``cfg``
+    is passed on to the CLI (a cut of ``--arch``'s config).  Returns
     the launches of its first run."""
     import gc
     import torch
@@ -1996,14 +2029,14 @@ def static_phase(mode: str, smi: str, args=None,
         # the per-token loop first, and only its tokens kept: one model
         # on the card at a time
         registry.reset_launches()
-        loop = serve.main(args + ["--loop"])
+        loop = serve.main(args + ["--loop"], cfg=cfg)
         torch.cuda.synchronize()
         loop_launches = dict(registry.LAUNCHES)
         loop_out, loop_s = loop["out"], loop["wall_s"]
         del loop
         gc.collect()
         registry.reset_launches()
-        scan = serve.main(args)
+        scan = serve.main(args, cfg=cfg)
         torch.cuda.synchronize()
         scan_launches = dict(registry.LAUNCHES)
         if first is None:
@@ -2484,6 +2517,15 @@ KERNEL_CLASSES = [
 ]
 
 
+def moe_layers(cfg) -> int:
+    """The layers of ``cfg`` whose FFN is routed: every layer of OLMoE's
+    stack, every other one of Jamba's (one ``moe.route`` call each in a
+    forward pass)."""
+    from repro_torch.models import transformer
+    return sum(transformer.layer_kinds(cfg, j)[1] == "moe"
+               for j in range(cfg.num_layers))
+
+
 def no_drop(cfg):
     """``cfg`` at capacity factor E / k: an expert's capacity is then
     every row of a call, and no assignment is dropped."""
@@ -2636,7 +2678,7 @@ def moe_backend_parity(sched) -> tuple[float, float]:
     import numpy as np
     import torch
     cfg, params = sched.cfg, sched.params
-    layers, k = cfg.num_layers, cfg.moe.top_k
+    layers, k = moe_layers(cfg), cfg.moe.top_k
     with routing(layers) as ra:
         a = chunk_and_step(sched, params, "cuda")
 
@@ -2703,7 +2745,7 @@ def solo_routing(eng, requests, solo: dict) -> tuple[dict, dict]:
     routing by position (``by_position``) and its top-2 logit margin
     before each token.  Its greedy tokens must be ``solo``'s."""
     import torch
-    dev, layers = eng.device, eng.cfg.num_layers
+    dev, layers = eng.device, moe_layers(eng.cfg)
     margins = {}
     with routing(layers) as rec, torch.inference_mode():
         for r in requests:
@@ -2745,7 +2787,7 @@ def no_drop_runs(sched, requests, graph_tokens: dict, solo: dict, ref: dict,
     follow a routing choice that differs.  Returns the eager tokens and
     the failures."""
     import numpy as np
-    layers = sched.cfg.num_layers
+    layers = moe_layers(sched.cfg)
     free = like(sched, cuda_graphs=False)
     with routing(layers, sched=free):
         own = tokens_of(free.run(requests))
@@ -2791,11 +2833,12 @@ def no_drop_runs(sched, requests, graph_tokens: dict, solo: dict, ref: dict,
     return dict(own=own, held=kept, rows=rows), failed
 
 
-def moe_measure(sched, contig, requests, smi: str) -> None:
+def moe_measure(sched, contig, requests, smi: str) -> dict[str, float]:
     """Phase 11's numbers in one mode: a decode replay's device time and
     its split under the profiler; the expert cast, the expert products
     and the rest of one layer's ``moe_ffn`` timed alone; a 64-token
-    prompt's prefill; the share of assignments dropped a decode step."""
+    prompt's prefill; the share of assignments dropped a decode step.
+    Returns the replay's and the prefill's device ms."""
     import numpy as np
     import torch
     from repro_torch.models import moe
@@ -2817,7 +2860,8 @@ def moe_measure(sched, contig, requests, smi: str) -> None:
             for k, v in split.items()) + f"; top: {top_kernels(by_name, 5)}")
     else:
         prof = "the profiler saw no device time (not measured)"
-    experts = [blk["moe"][n] for blk in params["blocks"]
+    blocks = [blk["moe"] for blk in params["blocks"] if "moe" in blk]
+    experts = [blk[n] for blk in blocks
                for n in ("experts_wg", "experts_wu", "experts_wd")]
 
     def cast_all():
@@ -2825,7 +2869,7 @@ def moe_measure(sched, contig, requests, smi: str) -> None:
             t.to(torch.bfloat16)
 
     cast_ms = event_ms(cast_all, reps=3)
-    blk = params["blocks"][0]["moe"]
+    blk = blocks[0]
     w = [blk[n].to(torch.bfloat16) for n in ("experts_wg", "experts_wu",
                                              "experts_wd")]
     g = torch.Generator(device=dev).manual_seed(5)
@@ -2833,7 +2877,7 @@ def moe_measure(sched, contig, requests, smi: str) -> None:
     buf = torch.randn((e, 1, d), generator=g, device=dev).to(torch.bfloat16)
 
     def products():
-        for _ in range(cfg.num_layers):
+        for _ in blocks:
             act = torch.nn.functional.silu(torch.bmm(buf, w[0])) * \
                 torch.bmm(buf, w[1])
             torch.bmm(act, w[2])
@@ -2844,12 +2888,12 @@ def moe_measure(sched, contig, requests, smi: str) -> None:
     with torch.inference_mode():
         layer_ms = event_ms(lambda: moe.moe_ffn(blk, x, cfg, aux=False),
                             reps=5)
-    rest_ms = layer_ms - (cast_ms + bmm_ms) / cfg.num_layers
+    rest_ms = layer_ms - (cast_ms + bmm_ms) / len(blocks)
     nbytes = sum(t.numel() for t in experts) * (4 + 2)
     log(f"moe {cfg.name} {mode} decode step ({b} slots): a graph replay "
         f"{replay_ms:.4f} ms of device time; {prof} on {smi}")
     log(f"moe {cfg.name} {mode} alone: the per-call expert cast of all "
-        f"{cfg.num_layers} layers {cast_ms:.3f} ms ({nbytes / 1e9:.1f} GB "
+        f"{len(blocks)} MoE layers {cast_ms:.3f} ms ({nbytes / 1e9:.1f} GB "
         f"read and written, bound {nbytes / peaks(smi)[0] * 1e3:.3f} ms); "
         f"the expert products at capacity 1 (3 bmms a layer over all {e} "
         f"experts) {bmm_ms:.3f} ms; one layer's moe_ffn {layer_ms:.3f} ms, "
@@ -2869,6 +2913,7 @@ def moe_measure(sched, contig, requests, smi: str) -> None:
         f"step (over {len(shares)} layer calls of the trace): mean "
         f"{100 * float(np.mean(shares)):.1f} %, max "
         f"{100 * max(shares):.1f} % on {smi}")
+    return {"replay_ms": replay_ms, "prefill_ms": prefill_ms}
 
 
 def dropped_shares(sched, requests) -> list[float]:
@@ -2877,7 +2922,7 @@ def dropped_shares(sched, requests) -> list[float]:
     rows' assignments included (they take capacity too)."""
     from repro_torch.models import moe
     eager = like(sched, cuda_graphs=False)
-    with routing(sched.cfg.num_layers, sched=eager) as rec:
+    with routing(moe_layers(sched.cfg), sched=eager) as rec:
         eager.run(requests)
     e = sched.cfg.moe.num_experts
     return [float((moe.dispatch_slots(c["idx"], e) >= c["cap"]).float()
@@ -2889,12 +2934,10 @@ def moe_run(mode: str, smi: str) -> dict[str, int]:
     paths, whose launches are returned with the static batch's), then
     the gates at the config's own capacity factor and at E / k."""
     import gc
-    import numpy as np
     import torch
     from repro_torch.kernels import registry
     from repro_torch.launch import serve
-    from repro_torch.serve import (ContinuousBatchingScheduler,
-                                   oracle_completion)
+    from repro_torch.serve import ContinuousBatchingScheduler
     t0 = time.perf_counter()
     launches: dict[str, int] = {}
     runs = {}
@@ -2991,15 +3034,40 @@ def moe_run(mode: str, smi: str) -> dict[str, int]:
     moe_measure(paged, contig, reqs, smi)
     # at E / k nothing is dropped: each row alone again, up to the float
     # rounding of the expert products, whose row count is the capacity
-    nd = no_drop(paged.cfg)
+    no_drop_phase(paged, reqs, mode)
+    del runs, run, paged, contig, sched, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in static_phase(mode, smi, OLMOE_STATIC_ARGS,
+                             temps=(0.0,)).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe {mode}: phase in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated")
+    return launches
+
+
+def no_drop_phase(sched, reqs, mode: str) -> None:
+    """At capacity factor E / k nothing is dropped: ``sched``'s model on
+    a paged and a contiguous scheduler against every request of
+    ``reqs`` alone through ``generate_loop`` on ``cuda``, with the
+    routing held and free (``no_drop_runs``), each first difference
+    counted; raises on a failed gate."""
+    import numpy as np
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   oracle_completion)
+    # at E / k nothing is dropped: each row alone again, up to the float
+    # rounding of the expert products, whose row count is the capacity
+    nd = no_drop(sched.cfg)
     scheds = {
         "paged": ContinuousBatchingScheduler(
-            nd, paged.params, num_slots=paged.num_slots,
-            max_len=paged.max_len, kv_block_size=16, chunked_prefill=True,
-            device=paged.device),
+            nd, sched.params, num_slots=sched.num_slots,
+            max_len=sched.max_len, kv_block_size=16, chunked_prefill=True,
+            device=sched.device),
         "contiguous": ContinuousBatchingScheduler(
-            nd, paged.params, num_slots=paged.num_slots,
-            max_len=paged.max_len, kv_block_size=0, device=paged.device)}
+            nd, sched.params, num_slots=sched.num_slots,
+            max_len=sched.max_len, kv_block_size=0, device=sched.device)}
     nd_tokens = {k: timed_run(s, reqs)["tokens"] for k, s in scheds.items()}
     tie, sens = moe_backend_parity(scheds["paged"])
     t1 = time.perf_counter()
@@ -3040,17 +3108,6 @@ def moe_run(mode: str, smi: str) -> dict[str, int]:
         f" % of {gaps.size} within {sens:.3g}; gates failed: {failed}")
     if failed:
         raise AssertionError(f"moe {mode} no-drop: {failed}")
-    del runs, run, paged, contig, scheds, eng, sched, p, s
-    gc.collect()
-    torch.cuda.empty_cache()
-    for k, v in static_phase(mode, smi, OLMOE_STATIC_ARGS,
-                             temps=(0.0,)).items():
-        launches[k] = launches.get(k, 0) + v
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"moe {mode}: phase in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated")
-    return launches
 
 
 def granite_run(smi: str) -> dict[str, int]:
@@ -3137,6 +3194,329 @@ def check_moe_kernels(dev, gpu_name: str) -> dict[str, list[dict]]:
             "paged_attention": attn}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the hybrid family (Jamba-v0.1: Mamba and attention mixers,
+# dense MLPs and routed experts in turn)
+# ---------------------------------------------------------------------------
+
+# Jamba-v0.1 at full width cut to one period of 8 layers (7 Mamba + 1
+# attention mixers, 4 dense MLPs + 4 MoE FFNs): the f32 expert stacks of
+# its 32 layers (16 MoE layers, 180 GB) exceed one card, a period's are
+# 45.1 GB; fewer than 8 layers would drop its attention layer
+JAMBA_LAYERS = 8
+JAMBA_ARGS = ["--arch", "jamba-v0.1-52b"] + SERVE_ARGS[2:]
+JAMBA_CONTIG_ARGS = ["--arch", "jamba-v0.1-52b"] + CONTIG_ARGS[2:]
+JAMBA_STATIC_ARGS = ["--arch", "jamba-v0.1-52b"] + STATIC_ARGS[2:]
+# its projections on the MVM kernels by (K, N), counted over a forward
+# pass: in, x, dt and out of the 7 Mamba layers; q, o and k, v of the
+# attention layer; gate, up and down of the 4 MLPs: 44
+JAMBA_MVM = {(4096, 16384): 7, (8192, 288): 7, (256, 8192): 7,
+             (8192, 4096): 7, (4096, 4096): 2, (4096, 1024): 2,
+             (4096, 14336): 8, (14336, 4096): 4}
+# its attention layout: KV heads, queries a KV head, head dim
+JAMBA_HEADS = (8, 4, 128)
+
+
+def jamba_cut(**kw):
+    """Jamba-v0.1's published config at ``JAMBA_LAYERS`` layers."""
+    from repro_torch import configs
+    return configs.get("jamba-v0.1-52b").replace(num_layers=JAMBA_LAYERS,
+                                                  **kw)
+
+
+def check_hybrid_kernels(dev, gpu_name: str) -> dict[str, list[dict]]:
+    """Phase 3's checks at Jamba-v0.1's shapes: K1 and K2 at its eight
+    projection shapes (a decode step's M = 4 and a chunk's M = 16), K3 at
+    KV = 8, G = 4, hd = 128.  Returns their rows of the kernels line."""
+    mvm = mvm_sweep(dev, JAMBA_MVM, JAMBA_LAYERS, "Jamba-v0.1 (one period)",
+                    sorted(STEP_ROWS))
+    attn = check_attention(dev, gpu_name, layouts=[JAMBA_HEADS])
+    return {"bitslice_mvm_scaled": [c["K1"] for c in mvm],
+            "bitslice_mvm": [c["K2"] for c in mvm],
+            "paged_attention": attn}
+
+
+def mamba_cells_ms(cfg, slots: int, tokens: int = 1) -> float:
+    """Device time of the Mamba layers' work outside their projections in
+    one forward of ``tokens`` tokens (1: a decode step), alone: each
+    layer's conv over its window, dt's softplus, the state update token
+    by token and the output gate (``models/ssm.py``) at ``slots`` rows
+    on random inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm, transformer
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    inner, st = ssm._inner(cfg), cfg.ssm_state_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    conv_w, conv_b = rnd(inner, cfg.ssm_conv_width) * 0.2, rnd(inner)
+    a_log = torch.log(torch.arange(1, st + 1, device=dev,
+                                   dtype=torch.float32)).repeat(inner, 1)
+    window, h = rnd(slots, cfg.ssm_conv_width - 1, inner), rnd(slots, inner,
+                                                               st)
+    xi, z = (rnd(slots, tokens, inner).to(torch.bfloat16)
+             for _ in range(2))
+    dt_raw = rnd(slots, tokens, inner)
+    b_t, c_t = rnd(slots, tokens, st), rnd(slots, tokens, st)
+    d_skip = torch.ones(inner, device=dev)
+    layers = sum(transformer.layer_kinds(cfg, j)[0] == "mamba"
+                 for j in range(cfg.num_layers))
+
+    def cells():
+        for _ in range(layers):
+            ext = torch.cat([window, xi.float()], dim=1)
+            xc = F.silu(ssm._causal_conv(ext, conv_w, conv_b))
+            dt = ssm._softplus(dt_raw)
+            _, y = ssm._recurrence(h, xc, dt, b_t, c_t,
+                                   -torch.exp(a_log), d_skip)
+            y.to(torch.bfloat16) * F.silu(z)
+    return device_ms(cells, iters=2)
+
+
+def hybrid_measure(paged, contig, reqs, smi: str) -> None:
+    """Phase 12's numbers in one mode: phase 11's (a decode replay and
+    its split under the profiler, the expert cast and products alone, a
+    64-token prefill, the dropped share), the Mamba layers' conv and
+    recurrence alone and their share of the replay and of the prefill,
+    the state bytes a slot and the KV bytes a token."""
+    from repro_torch.models import lm, transformer
+    cfg = paged.cfg
+    times = moe_measure(paged, contig, reqs, smi)
+    replay_ms, prefill_ms = times["replay_ms"], times["prefill_ms"]
+    cells_ms = mamba_cells_ms(cfg, paged.num_slots)
+    prefill_cells_ms = mamba_cells_ms(cfg, 1, 64)
+    state = sum(t.nbytes for t in lm.recurrent_tensors(
+        cfg, paged.states)) / paged.num_slots
+    attn = sum(transformer.layer_kinds(cfg, j)[0] == "attn"
+               for j in range(cfg.num_layers))
+    kv = attn * 2 * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    log(f"hybrid {cfg.pum.mode}: a decode replay {replay_ms:.4f} ms, of it "
+        f"the Mamba layers' conv and recurrence (timed alone, "
+        f"{paged.num_slots} rows) {cells_ms:.4f} ms = "
+        f"{100 * cells_ms / replay_ms:.1f} %; a 64-token prefill "
+        f"{prefill_ms:.3f} ms, of it the Mamba layers' conv and per-token "
+        f"recurrence (alone) {prefill_cells_ms:.3f} ms = "
+        f"{100 * prefill_cells_ms / prefill_ms:.1f} %; SSM state (h and "
+        f"conv window, f32) {state / 1e6:.2f} MB a slot, KV {kv} bytes a "
+        f"token "
+        f"({attn} attention layer) on {smi}")
+
+
+def hybrid_run(mode: str, smi: str) -> dict[str, int]:
+    """Phase 12 in one mode: the CLI paged and contiguous on Jamba's
+    period (its main paths, whose launches are returned with the static
+    batch's), then the gates at the config's own capacity factor and at
+    E / k.  One model on the card at a time: the contiguous scheduler's
+    weights serve the paged scheduler after the CLI runs (the same seed,
+    so the same weights)."""
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve import ContinuousBatchingScheduler
+    t0 = time.perf_counter()
+    cfg = jamba_cut()
+    launches: dict[str, int] = {}
+    cli = {}
+    for layout, args in (("paged", JAMBA_ARGS),
+                         ("contiguous", JAMBA_CONTIG_ARGS)):
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        res = serve.main(args + ["--pum-mode", mode], cfg=cfg)
+        torch.cuda.synchronize()
+        counts = dict(registry.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        sched = res["scheduler"]
+        launch_gate(mode, sched.cfg, sched.decode_steps,
+                    sched.prefill_chunks, counts, paged=sched.paged)
+        progs = sched.step_programs()
+        built = [progs["decode"], *next(v for k, v in progs.items()
+                                        if k != "decode").values()]
+        comps = res["completions"]
+        vp = sched.params["embed"].shape[0]
+        if len(comps) != 6 or any(
+                len(c.tokens) != 16 or not all(0 <= t < vp for t in c.tokens)
+                for c in comps.values()) \
+                or any(n != 1 for n in built) \
+                or res["graphs"] != len(built):
+            raise AssertionError(f"hybrid {mode} {layout}: completions "
+                                 f"{tokens_of(comps)}, programs {progs}, "
+                                 f"{res['graphs']} graphs")
+        log(f"hybrid {mode} {layout}: {sched.cfg.name} cut to "
+            f"{sched.cfg.num_layers} layers, d_model {sched.cfg.d_model}, "
+            f"{moe_layers(sched.cfg)} MoE layers of "
+            f"{sched.cfg.moe.num_experts} experts top-{sched.cfg.moe.top_k} "
+            f"at capacity factor {sched.cfg.moe.capacity_factor}; 6 requests "
+            f"x 16 tokens, {sched.decode_steps} decode steps + "
+            f"{sched.prefill_chunks} prefill "
+            f"{'chunks' if sched.paged else 'prompts'}; launches {counts} "
+            f"(replays counted); programs {progs}, {res['graphs']} graphs "
+            f"built in {res['build_s']:.2f} s; setup {res['setup_s']:.2f} s; "
+            f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}")
+        cli[layout] = dict(tokens=tokens_of(comps), requests=res["requests"])
+        if layout == "paged":
+            del res, sched, comps
+            gc.collect()
+            torch.cuda.empty_cache()
+    contig = sched
+    del res
+    paged = ContinuousBatchingScheduler(
+        contig.cfg, contig.params, num_slots=contig.num_slots,
+        max_len=contig.max_len, kv_block_size=16, chunked_prefill=True,
+        device=contig.device)
+    reqs = cli["paged"]["requests"]
+    gates, again = {}, {}
+    for layout, sched in (("paged", paged), ("contiguous", contig)):
+        # the trace again from the state a fresh scheduler starts in (the
+        # idle rows take expert capacity)
+        sched._reset()
+        again[layout] = timed_run(sched, reqs)
+        progs = sched.step_programs()
+        sched._reset()
+        twice = timed_run(sched, reqs)
+        eager = timed_run(like(sched, cuda_graphs=False), reqs)
+        gates[f"{layout}: the same trace from a fresh state gives the CLI's "
+              f"tokens, twice, building nothing after its first"] = (
+            again[layout]["tokens"] == cli[layout]["tokens"]
+            == twice["tokens"] and sched.step_programs() == progs
+            and progs["decode"] == 1)
+        gates[f"{layout}: graphs and eager give the same tokens and "
+              f"launches"] = (eager["tokens"] == cli[layout]["tokens"]
+                              and eager["launches"] == twice["launches"])
+        for r in (again[layout], twice, eager):
+            launch_gate(mode, sched.cfg, r["steps"], r["chunks"],
+                        r["launches"], paged=sched.paged)
+        bad = nonfinite(sched)
+        gates[f"{layout}: the SSM states and every step's last logits "
+              f"finite"] = not bad
+        # timed on the second run from a fresh state: every program built
+        log(f"hybrid {mode} {layout}: decode_ms_per_step graphs / eager "
+            f"{twice['decode_ms']:.3f} / {eager['decode_ms']:.3f}, "
+            f"tokens_per_s {twice['tokens_per_s']:.2f} / "
+            f"{eager['tokens_per_s']:.2f}, peak_mem_GB "
+            f"{twice['peak_gb']:.2f}; non-finite {bad} on {smi}")
+        del eager
+    failed = [k for k, ok in gates.items() if not ok]
+    split = first_difference(cli["paged"]["tokens"],
+                             cli["contiguous"]["tokens"])
+    log(f"hybrid {mode} at the own capacity factor: paged and contiguous "
+        f"first differ at {split} "
+        f"(their chunks and prompts drop differently; not a gate); gates "
+        f"failed: {failed}")
+    if failed:
+        raise AssertionError(f"hybrid {mode}: {failed}")
+    moe_backend_parity(paged)
+    hybrid_measure(paged, contig, reqs, smi)
+    # the paged scheduler's graphs go before the no-drop schedulers
+    # build their own
+    del paged, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    no_drop_phase(contig, reqs, mode)
+    del contig
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, v in static_phase(mode, smi, JAMBA_STATIC_ARGS, temps=(0.0,),
+                             cfg=cfg).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"hybrid {mode}: phase in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated")
+    return launches
+
+
+def dense_ffn_run(smi: str) -> None:
+    """The sharp gate on the Mamba mixer: Jamba's period with its MoE
+    FFNs made dense (all 8 FFNs MLPs of d_ff 14336; no capacity couples
+    the rows), ``pum``, phase 8's sampled requests: on contiguous windows
+    each completion equals its request alone through ``generate_loop``
+    on ``cuda`` bit for bit (both attend through the plain composition);
+    paged, the same on the ``torch`` backend; paged on ``cuda`` (K3 sums
+    in another order than the solo's attention) the first differences
+    are counted, not gated."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.config import MoEConfig, PUMConfig
+    from repro_torch.models import lm
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   oracle_completion, synthetic_workload)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = jamba_cut(moe=MoEConfig(), pum=PUMConfig(mode="pum"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                    cfg)
+    base = synthetic_workload(6, cfg.vocab_size, min_prompt=20,
+                              max_prompt=64, max_new=16, seed=0)
+    reqs = [dataclasses.replace(r, temperature=t, seed=s) for r, t, s in
+            zip(base, SAMPLED_TEMPS, SAMPLED_SEEDS)]
+    # phase 4's trace on the CLI's geometry (4 slots, a window of 64 + 16
+    # + 1 positions)
+    geometry = dict(num_slots=4, max_len=81, device=dev)
+    contig = ContinuousBatchingScheduler(cfg, params, kv_block_size=0,
+                                         **geometry)
+    run = timed_run(contig, reqs)
+    launch_gate("pum", cfg, run["steps"], run["chunks"], run["launches"],
+                paged=False)
+    contig_t = run["tokens"]
+    solo = {r.rid: oracle_completion(contig.engine, r) for r in reqs}
+    del contig
+    gc.collect()
+    paged = ContinuousBatchingScheduler(cfg, params, kv_block_size=16,
+                                        chunked_prefill=True, **geometry)
+    paged_t = tokens_of(paged.run(reqs))
+    del paged
+    gc.collect()
+    plain = ContinuousBatchingScheduler(cfg, params, kv_block_size=16,
+                                        chunked_prefill=True,
+                                        kernel_backend="torch", **geometry)
+    plain_t = tokens_of(plain.run(reqs))
+    plain_solo = {r.rid: oracle_completion(plain.engine, r) for r in reqs}
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = first_difference(paged_t, solo)
+    gates = {
+        "contiguous, cuda: each completion equals its request alone "
+        "through generate_loop": contig_t == solo,
+        "paged, torch backend: each completion equals its request alone "
+        "through generate_loop": plain_t == plain_solo,
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"hybrid dense-FFN variant (pum, {cfg.num_layers} layers, "
+        f"{per_pass(cfg)[0]} MVM a forward): 6 requests at temperatures "
+        f"{list(SAMPLED_TEMPS)}; contiguous on cuda vs solo first "
+        f"differences {first_difference(contig_t, solo)}; paged on torch vs "
+        f"solo {first_difference(plain_t, plain_solo)}; paged on cuda (K3) "
+        f"vs the cuda solo {diff}: {sum(i is not None for i in diff.values())}"
+        f" of 6 requests part at a near-tie (not a gate); "
+        f"{time.perf_counter() - t0:.1f} s; gates failed: {failed} on {smi}")
+    if failed:
+        raise AssertionError(f"hybrid dense-FFN variant: {failed}")
+
+
+def hybrid_phase(smi: str) -> dict[str, int]:
+    """Phase 12; returns each kernel's launches on its main paths."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the MoE router runs in "
+                             "f32 (models/moe.py)")
+    launches: dict[str, int] = {}
+    for mode in ("pum", "int8"):
+        for k, v in hybrid_run(mode, smi).items():
+            launches[k] = launches.get(k, 0) + v
+    dense_ffn_run(smi)
+    log(f"hybrid: phase 12 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -3168,7 +3548,8 @@ OFF_MAIN_PATH = {"gf2_mvm"}
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
-                                       "xlstm", "moe"], default=None)
+                                       "xlstm", "moe", "hybrid"],
+                    default=None)
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -3231,6 +3612,14 @@ def main(argv=None) -> int:
         log(f"phase 11 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "hybrid":
+        cases = check_hybrid_kernels(dev, gpu_name)
+        hybrid_launches = hybrid_phase(smi)
+        log(json.dumps({"kernels": {"launches": hybrid_launches,
+                                    "hybrid_shapes": cases}}))
+        log(f"phase 12 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     # -- 3. kernels
     rows = check_mvm(dev)
     for name, cases in xlstm_rows(check_xlstm_mvm(dev)).items():
@@ -3238,6 +3627,8 @@ def main(argv=None) -> int:
     rows["paged_attention"] = attention_row(check_attention(dev, gpu_name))
     for name, cases in check_moe_kernels(dev, gpu_name).items():
         rows[name]["moe_shapes"] = cases
+    for name, cases in check_hybrid_kernels(dev, gpu_name).items():
+        rows[name]["hybrid_shapes"] = cases
     rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
@@ -3269,6 +3660,9 @@ def main(argv=None) -> int:
     for k, v in moe_phase(smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 11 done at {time.perf_counter() - start:.1f} s")
+    for k, v in hybrid_phase(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 12 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -15,9 +15,12 @@ groups: layer ``g * period + j`` is group ``g`` of ``blocks[j]``.  That
 is the layout of any period: an xLSTM stack's (period 2 in the reduced
 configs, 4 at full width, 5 where ``num_layers=10`` makes it ragged)
 comes across with its mixer params, bias leaves and packed ``[d, 4]``
-gates as a dense one's, and an MoE layer with its ``[G, E, D, F]``
+gates as a dense one's, an MoE layer with its ``[G, E, D, F]``
 expert stacks and its f32 router (never packed) as ``[E, D, F]`` and
-``[D, E]`` tensors.  Packed planes keep the JAX ``[S, K, N]`` layout.
+``[D, E]`` tensors, and a Mamba layer of Jamba's period 8 with its conv
+taps ``[inner, W]``, conv bias, ``a_log``, ``d_skip`` and ``dt_proj``'s
+bias as float tensors beside its four packed projections.  Packed
+planes keep the JAX ``[S, K, N]`` layout.
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 published config, ``get_reduced(name)`` a same-family miniature for CPU
 tests.  It carries the configs the port serves at full width: the
 dense Qwen2.5-3B, the recurrent xLSTM-350M (mLSTM and sLSTM mixers),
-and the MoE family's OLMoE-1B-7B and granite-moe-1b-a400m (attention
-with a top-k routed expert FFN in every layer)."""
+the MoE family's OLMoE-1B-7B and granite-moe-1b-a400m (attention with a
+top-k routed expert FFN in every layer), and the hybrid Jamba-v0.1
+(Mamba and attention mixers 7:1, MoE FFNs in every other layer; the
+card holds one 8-layer period of it, not its 32 layers)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +17,7 @@ ARCH_IDS = {
     "xlstm-350m": "xlstm_350m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 

@@ -15,6 +15,14 @@ f32 router and the float experts (cast to bf16 on every call) beside
 them, at the config's own capacity factor, whose drops couple the rows
 of a step.
 
+``--arch jamba-v0.1-52b`` serves the hybrid family: Mamba mixers (their
+conv window and SSM state a slot, no KV) and one attention layer in 8,
+dense MLPs and routed experts in turn.  Its 32 layers at full width hold
+16 MoE layers of f32 expert stacks, 180 GB, more than one card has; the
+card serves one 8-layer period, which keeps the whole layout, through
+``main(argv, cfg=configs.get("jamba-v0.1-52b").replace(num_layers=8))``
+(``chip_smoke.py``).  ``--reduced`` serves its miniature.
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through
@@ -42,7 +50,7 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch.config import PUMConfig
+from repro_torch.config import ModelConfig, PUMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import (ContinuousBatchingScheduler, ServeEngine,
@@ -93,14 +101,19 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: list[str] | None = None) -> dict:
+def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
+         ) -> dict:
     """Serve a burst trace (or, with ``--batch-slots 0``, a static
     batch); returns the scheduler (the engine), its completions (its
-    tokens) and the measured numbers (for ``chip_smoke.py``)."""
+    tokens) and the measured numbers (for ``chip_smoke.py``).  ``cfg``,
+    when given, is served in place of ``--arch``'s config (its mode from
+    ``--pum-mode``): a caller's cut of a published config, such as
+    Jamba's one period."""
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = configs.get_reduced(args.arch) if args.reduced \
-        else configs.get(args.arch)
+    if cfg is None:
+        cfg = configs.get_reduced(args.arch) if args.reduced \
+            else configs.get(args.arch)
     cfg = cfg.replace(pum=PUMConfig(mode=args.pum_mode))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()

@@ -75,6 +75,22 @@ def norm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     return layernorm(p, x, cfg.norm_eps)
 
 
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by halving it with elementwise adds (zero
+    padded up to a power of two), the same tree for every row: a row's
+    sum never depends on how many rows run with it, as a reduction or
+    batched GEMM kernel's may (it can pick its launch shape, and with it
+    its summation order, from the batch)."""
+    n = x.shape[-1]
+    width = 1 << max(0, (n - 1).bit_length())
+    if width != n:
+        x = F.pad(x, (width - n, 0))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """The assembled language model: embeddings -> block stack -> head.
 
-Dense decoders (Qwen2.5-3B), the xLSTM family (xLSTM-350M) and the
-MoE family (OLMoE-1B-7B, granite-moe-1b-a400m: attention with routed
-experts), and the small test configs of each.  Params are per layer —
-``params["blocks"][l]`` — and a Python loop over layers takes the place
-of the JAX package's ``scan`` over stacked groups; decode states are per
-layer too (``states[l]``): a KV cache or pool, or a recurrent mixer's
-per-slot rows, all updated in place.
+Dense decoders (Qwen2.5-3B), the xLSTM family (xLSTM-350M), the MoE
+family (OLMoE-1B-7B, granite-moe-1b-a400m: attention with routed
+experts) and the hybrid family (Jamba-v0.1: Mamba and attention mixers,
+dense and routed FFNs), and the small test configs of each.  Params are
+per layer — ``params["blocks"][l]`` — and a Python loop over layers
+takes the place of the JAX package's ``scan`` over stacked groups;
+decode states are per layer too (``states[l]``): a KV cache or pool, or
+a recurrent mixer's per-slot rows, all updated in place.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import prepack
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, transformer, xlstm
+from repro_torch.models import attention, layers, transformer
 
 Params = dict[str, Any]
 
@@ -54,7 +55,7 @@ def init_state(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> list[Params]:
     """Per-layer decode states: contiguous KV caches [batch, max_len,
     KV, hd] (bf16) for attention, recurrent rows [batch, ...] (f32) for
-    mLSTM and sLSTM."""
+    mLSTM, sLSTM and Mamba."""
     dev = resolve_device(device)
     return [transformer.make_block_state(cfg, j, batch, max_len, dev)
             for j in range(cfg.num_layers)]
@@ -66,7 +67,8 @@ def init_paged_state(cfg: ModelConfig, batch: int, max_len: int, *,
     """Per-layer KV pools of ``num_blocks + 1`` blocks (block 0 is the
     reserved trash block — ``serve.kv_pool``) for attention layers; the
     recurrent layers keep their per-slot ``[batch, ...]`` rows beside
-    them.  A pure-recurrent stack has no pool."""
+    them (a hybrid stack holds both).  A pure-recurrent stack has no
+    pool."""
     dev = resolve_device(device)
     return [attention.make_paged_cache(cfg, num_blocks + 1, block_size,
                                        device=dev)
@@ -92,15 +94,19 @@ def reset_states(cfg: ModelConfig, states: list[Params],
     zero from position ``kv_from`` on.  With ``row``, only that slot's
     recurrent rows, as the reference's ``reset_slot_recurrent``: a KV
     pool is shared, and a slot's stale blocks are handled by allocation
-    and masking."""
+    and masking.  Each mixer kind has its own init values
+    (``transformer.STATE_INIT``): an xLSTM ``m`` at -1e30, the rest
+    (Mamba's ``h`` and conv window too) zero."""
     for j, st in enumerate(states):
-        if transformer.layer_kinds(cfg, j)[0] == "attn":
+        mk = transformer.layer_kinds(cfg, j)[0]
+        if mk == "attn":
             if row is None:
                 for t in st.values():
                     t[:, kv_from:].zero_()
             continue
+        init = transformer.STATE_INIT[mk]
         for name, t in st.items():
-            (t if row is None else t[row]).fill_(xlstm.STATE_INIT[name])
+            (t if row is None else t[row]).fill_(init[name])
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,

@@ -1,11 +1,12 @@
 """Decoder block assembly: per-layer kind selection and the blocks the
-port serves.  The mixers are attention and the xLSTM family's mLSTM and
-sLSTM; the FFN is a dense MLP, the MoE family's routed experts
-(``models/moe.py``, beside attention), or none (xLSTM's ``d_ff`` is 0).
-Layer ``l`` takes the kinds of position ``l % period(cfg)`` of the
-repeating pattern, as the reference's grouped stack does.  Mamba
-mixers, cross-attention, encoder-decoder and vision models are not
-ported yet and raise ``NotImplementedError``."""
+port serves.  The mixers are attention, the xLSTM family's mLSTM and
+sLSTM, and the hybrid family's Mamba (``models/ssm.py``: Jamba's 7:1
+interleave of Mamba and attention); the FFN is a dense MLP, the MoE
+family's routed experts (``models/moe.py``, beside attention or Mamba),
+or none (xLSTM's ``d_ff`` is 0).  Layer ``l`` takes the kinds of
+position ``l % period(cfg)`` of the repeating pattern, as the
+reference's grouped stack does.  Cross-attention, encoder-decoder and
+vision models are not ported yet and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Any
@@ -13,11 +14,15 @@ from typing import Any
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import attention, layers, mlp, moe, xlstm
+from repro_torch.models import attention, layers, mlp, moe, ssm, xlstm
 
 Params = dict[str, Any]
 
-RECURRENT = ("mlstm", "slstm")
+RECURRENT = ("mlstm", "slstm", "mamba")
+# each recurrent mixer's leaves and the values a fresh state holds
+STATE_INIT = {"mlstm": xlstm.STATE_INIT, "slstm": xlstm.STATE_INIT,
+              "mamba": ssm.STATE_INIT}
+_MIXERS = {"mlstm": xlstm.mlstm, "slstm": xlstm.slstm, "mamba": ssm.mamba}
 
 
 def mixer_kind(cfg: ModelConfig, layer_idx: int) -> str:
@@ -67,12 +72,10 @@ def check_supported(cfg: ModelConfig) -> None:
             f"ported yet")
     for j in range(cfg.num_layers):
         mk, fk = layer_kinds(cfg, j)
-        dense = mk in ("attn",) + RECURRENT and fk in ("mlp", "none")
-        if not dense and (mk, fk) != ("attn", "moe"):
+        if fk == "moe" and mk not in ("attn", "mamba"):
             raise NotImplementedError(
-                f"{cfg.name}: layer {j} is ({mk}, {fk}); only attention, "
-                f"mLSTM and sLSTM mixers with dense MLPs, and attention "
-                f"with MoE FFNs, are ported yet")
+                f"{cfg.name}: layer {j} is ({mk}, {fk}); MoE FFNs are "
+                f"ported beside attention and Mamba mixers only")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
@@ -82,6 +85,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
     p: Params = {"norm1": layers.make_norm(cfg, device)}
     if mk == "attn":
         p["attn"] = attention.init_attention(gen, cfg, device)
+    elif mk == "mamba":
+        p["mamba"] = ssm.init_mamba(gen, cfg, device)
     elif mk == "mlstm":
         p["mlstm"] = xlstm.init_mlstm(gen, cfg, device)
     else:
@@ -103,6 +108,8 @@ def make_block_state(cfg: ModelConfig, layer_idx: int, batch: int,
     mk, _ = layer_kinds(cfg, layer_idx)
     if mk == "attn":
         return attention.make_cache(cfg, batch, max_len, device=device)
+    if mk == "mamba":
+        return ssm.make_ssm_state(cfg, batch, device)
     if mk == "mlstm":
         return xlstm.make_mlstm_state(cfg, batch, device)
     return xlstm.make_slstm_state(cfg, batch, device)
@@ -142,8 +149,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
             cache_index=cache_index, block_table=block_table, kv_len=kv_len,
             write_table=write_table)
     else:
-        mixer = xlstm.mlstm if mk == "mlstm" else xlstm.slstm
-        h, new = mixer(p[mk], h, cfg, state=state)
+        h, new = _MIXERS[mk](p[mk], h, cfg, state=state)
         if new is not None and commit:
             commit_state(state, new)
         elif new is not None:

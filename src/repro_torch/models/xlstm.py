@@ -17,8 +17,8 @@ block writes it into the layer's state tensors in place
 addresses.
 
 The recurrence's contractions over a head's lanes (``n . q`` and
-``C q``) are an elementwise product summed by :func:`_lane_sum`, a fixed
-tree of elementwise adds: a row's value never depends on how many rows
+``C q``) are an elementwise product summed by ``layers.lane_sum``, a
+fixed tree of elementwise adds: a row's value never depends on how many rows
 run with it (a reduction or batched GEMM kernel may pick its launch
 shape, and with it its summation order, from the batch).  The
 scheduler's oracle contract rests on this: a request decoded beside
@@ -49,19 +49,6 @@ def _dims(cfg: ModelConfig) -> tuple[int, int, int]:
     inner = 2 * cfg.d_model
     heads = cfg.num_heads
     return inner, heads, inner // heads
-
-
-def _lane_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis by halving it with elementwise adds (zero
-    padded up to a power of two), the same tree for every row."""
-    n = x.shape[-1]
-    width = 1 << max(0, (n - 1).bit_length())
-    if width != n:
-        x = F.pad(x, (width - n, 0))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +88,8 @@ def _mlstm_step(carry, q, k, v, i_pre, f_pre):
     c1 = c0 * fp[..., None, None] \
         + ip[..., None, None] * (v[..., :, None] * k[..., None, :])
     n1 = n0 * fp[..., None] + ip[..., None] * k
-    den = torch.maximum(torch.abs(_lane_sum(n1 * q)), torch.exp(-m1))
-    h = _lane_sum(c1 * q[..., None, :]) / den[..., None]
+    den = torch.maximum(torch.abs(layers.lane_sum(n1 * q)), torch.exp(-m1))
+    h = layers.lane_sum(c1 * q[..., None, :]) / den[..., None]
     return (c1, n1, m1), h
 
 

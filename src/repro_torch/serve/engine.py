@@ -1,6 +1,6 @@
 """Serving engine: prefill + decode over contiguous decode states (a KV
-cache per attention layer, per-row recurrent state per mLSTM or sLSTM
-layer).
+cache per attention layer, per-row recurrent state per mLSTM, sLSTM or
+Mamba layer).
 
 ``ServeEngine.generate`` runs a static batch as two compiled programs
 (``serve.compiled``), on the card two CUDA graphs, built once per batch,

@@ -13,10 +13,11 @@ its tokens touch, mapped through a per-slot *block table*.
   ``blocks_needed(...)`` blocks for its whole lifetime (up-front
   allocation: it never runs out mid-decode).
 
-Recurrent layers (mLSTM, sLSTM) keep per-slot rows beside the pools
-(``lm.init_paged_state``); the helpers at the end of this module view,
-merge and freeze those rows, in the port's per-layer form of the
-reference's state-tree helpers.  A pure-recurrent stack pages no KV.
+Recurrent layers (mLSTM, sLSTM, Mamba) keep per-slot rows beside the
+pools (``lm.init_paged_state``; a hybrid stack holds both in one state
+list); the helpers at the end of this module view, merge and freeze
+those rows, in the port's per-layer form of the reference's state-tree
+helpers.  A pure-recurrent stack pages no KV.
 
 Prefix caching (shared, refcounted blocks and copy-on-write) is not
 ported yet; the allocator keeps the JAX package's refcounts so it can

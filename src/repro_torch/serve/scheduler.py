@@ -3,8 +3,9 @@ windows.
 
 A fixed pool of ``num_slots`` decode slots shares one prepacked
 parameter set and the decode state of every layer (KV storage for
-attention, per-slot rows for the recurrent mLSTM and sLSTM), in one of
-the reference's two layouts:
+attention, per-slot rows for the recurrent mLSTM, sLSTM and Mamba
+mixers; a hybrid stack such as Jamba's holds both), in one of the
+reference's two layouts:
 
 * **paged** (``kv_block_size > 0``): one pool of KV blocks per layer
   (``serve.kv_pool``).  Admission claims a free slot and the request's
@@ -18,8 +19,9 @@ the reference's two layouts:
   the chunk step, from ``prng_key(seed)``) and joins decode.  A
   recurrent layer's chunk runs on a batch-1 copy of the slot's rows,
   which the step writes back; admission resets the slot's rows to a
-  fresh state first.  A pure-recurrent stack (xLSTM) pages no KV: its
-  requests take 0 blocks.
+  fresh state first (Mamba's: a zero state and conv window).  A
+  pure-recurrent stack (xLSTM) pages no KV: its requests take 0 blocks;
+  a hybrid one pages the KV of its attention layers only.
 * **contiguous** (``kv_block_size = 0``, the reference's default): a
   ``[num_slots, max_len]`` window per layer.  Admission prefills the
   whole prompt at once, batch 1, into a window of the scheduler's own,
@@ -57,10 +59,13 @@ per input row, and every row attends over the engine's whole window
 (the paged view is cropped to it), so a row's numerics never depend on
 its co-tenants.  The contiguous steps attend through the solo loop's
 own composition, so there it holds bit for bit on every backend, the
-card's ``cuda`` backend too.  The recurrences sum a head's lanes in a
-fixed tree whatever the batch (``models/xlstm.py``), and a stack with
-no attention runs no paged-attention kernel, so an xLSTM request's
-tokens equal its solo tokens in both layouts on every backend.  The
+card's ``cuda`` backend too.  The recurrences sum a head's lanes (or
+Mamba's state lanes) in a fixed tree whatever the batch
+(``layers.lane_sum``), and a stack with no attention runs no
+paged-attention kernel, so an xLSTM request's tokens equal its solo
+tokens in both layouts on every backend.  The recurrent prefill
+branches run token by token, so a chunk boundary moves no numerics:
+the paged chunks give the solo loop's whole-prompt prefill.  The
 paged steps hold it wherever both run the same arithmetic: on the CPU,
 and on the card's ``torch`` backend.  On the ``cuda`` backend they
 attend through the paged-attention kernel, which sums in another order
@@ -70,6 +75,8 @@ its tokens in any batch.
 
 MoE configs schedule fine but are excluded from the guarantee: expert
 capacity is shared across the batch, so dropping is inherently coupled.
+This holds for Jamba's hybrid stack too, whose every other FFN is
+routed.
 Every slot flows through the decode step, live or not, so an idle row's
 hidden state takes expert capacity too, and at a capacity of one slot
 an expert (OLMoE-1B-7B's at 4 slots) it decides which live assignments
@@ -86,7 +93,8 @@ rounding of the float expert products, whose row count is the
 capacity (a float GEMM's rows may differ by an ulp between row counts).
 
 This slice serves the dense family, the xLSTM family (mLSTM and sLSTM
-mixers) and the MoE family at any temperature, each request with its
+mixers), the MoE family and the hybrid family (Mamba and attention
+mixers, dense and routed FFNs) at any temperature, each request with its
 own seed, and its draws are the reference's (``serve.prng`` reproduces its threefry
 keys).  Prefix caching, speculative decoding, tensor parallelism and
 fault-injection hooks of the JAX package are not ported yet; their

@@ -874,10 +874,14 @@ def test_recurrent_steps_advance_once(dev, kind):
     step) built and called once, as a graph (warm-up, capture, replay),
     leaves the recurrent state that one eager call leaves, bit for bit,
     after every call; and the tokens are equal."""
+    _advance_once(dev, *_xlstm(dev, "pum"), kind)
+
+
+def _advance_once(dev, cfg, params, kind):
+    """``test_recurrent_steps_advance_once`` on ``cfg``'s stack."""
     from repro_torch.models import lm
     from repro_torch.serve import (ContinuousBatchingScheduler, Request,
                                    ServeEngine)
-    cfg, params = _xlstm(dev, "pum")
     runs = {}
     for graphs in (True, False):
         snaps, toks = [], []
@@ -919,3 +923,89 @@ def test_recurrent_steps_advance_once(dev, kind):
     for a, b in zip(runs[True][1], runs[False][1]):
         assert len(a) == len(b) and all(torch.equal(x, y)
                                         for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The hybrid family: the Mamba mixer on the card
+# ---------------------------------------------------------------------------
+
+def _hybrid(dev, mode):
+    """The reduced Jamba-v0.1 (8 layers: 7 Mamba, 1 attention, 4 MoE
+    FFNs) widened to a head dim of 64, which K3 takes, prepacked."""
+    from repro_torch.config import PUMConfig
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.models import lm
+    cfg = jamba_v0_1_52b.reduced().replace(
+        d_model=256, num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=512,
+        pum=PUMConfig(mode=mode))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                       cfg)
+
+
+def _mamba_inputs(dev, cfg, batch, seed):
+    """One Mamba layer's params of ``cfg`` (prepacked), an input of 6
+    tokens and a state a few tokens old, on the card."""
+    from repro_torch.core.prepack import prepack_params
+    from repro_torch.models import ssm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = prepack_params(ssm.init_mamba(g, cfg, dev), cfg.pum)
+    x = torch.randn((batch, 6, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    st = {n: torch.randn(t.shape, generator=g, device=dev)
+          for n, t in ssm.make_ssm_state(cfg, batch, dev).items()}
+    return p, x, st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_mamba_on_the_card_equals_the_torch_backend(dev, mode):
+    """The mixer on the ``cuda`` backend (its four projections on K1/K2)
+    and on the ``torch`` backend: the same outputs and states bit for
+    bit, in a prefill into a state and a decode step (the integer
+    products are exact, the rest is the same ops on the same card);
+    K1/K2 launched four times a call on ``cuda``."""
+    from repro_torch.models import ssm
+    cfg, _ = _hybrid(dev, mode)
+    p, x, st = _mamba_inputs(dev, cfg, 2, seed=1)
+    got = {}
+    for backend in ("cuda", "torch"):
+        registry.reset_launches()
+        with torch.inference_mode(), registry.use_backend(backend):
+            y1, s1 = ssm.mamba(p, x[:, :5], cfg, state=st)
+            y2, s2 = ssm.mamba(p, x[:, 5:], cfg, state=s1)
+        got[backend] = (y1, y2, s2["h"], s2["conv"], dict(registry.LAUNCHES))
+    kern = "bitslice_mvm_scaled" if mode == "pum" else "bitslice_mvm"
+    assert got["cuda"][4] == {kern: 8} and got["torch"][4] == {}
+    assert all(torch.equal(a, b) for a, b in zip(got["cuda"][:4],
+                                                 got["torch"][:4]))
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got["cuda"][:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "pum"])
+def test_mamba_row_is_batch_invariant_on_the_card(dev, mode):
+    """Row 0 of a batch of four equals that row run alone, bit for bit,
+    in a prefill from a state and in a decode step: the state lanes are
+    a fixed tree of adds, never a batched GEMM whose reduction the card
+    may choose by the batch."""
+    from repro_torch.models import ssm
+    cfg, _ = _hybrid(dev, mode)
+    p, x, st = _mamba_inputs(dev, cfg, 4, seed=2)
+    one = {n: t[:1] for n, t in st.items()}
+    with torch.inference_mode():
+        for lo, hi in ((0, 5), (5, 6)):
+            y4, st = ssm.mamba(p, x[:, lo:hi], cfg, state=st)
+            y1, one = ssm.mamba(p, x[:1, lo:hi], cfg, state=one)
+            assert torch.equal(y1, y4[:1])
+            assert all(torch.equal(one[n], st[n][:1]) for n in one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "contiguous", "static"])
+def test_mamba_steps_advance_once(dev, kind):
+    """``test_recurrent_steps_advance_once`` on the hybrid stack: each
+    step kind built and called once as a graph leaves the Mamba rows
+    (h and the conv window) one eager call leaves, bit for bit, beside
+    a paged or contiguous KV layer and MoE FFNs."""
+    _advance_once(dev, *_hybrid(dev, "pum"), kind)

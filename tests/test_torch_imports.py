@@ -86,7 +86,8 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
 ARCHS = ["qwen2.5-3b", "xlstm-350m"]
 # the MoE family's rows share the expert capacity, so its completions
 # are not its solo oracle's (tests/test_torch_moe.py holds them)
-CLI_ARCHS = ARCHS + ["olmoe-1b-7b", "granite-moe-1b-a400m"]
+CLI_ARCHS = ARCHS + ["olmoe-1b-7b", "granite-moe-1b-a400m",
+                     "jamba-v0.1-52b"]
 
 
 @pytest.mark.parametrize("arch", CLI_ARCHS)

@@ -243,6 +243,10 @@ def test_plain_versions_count_no_launches():
 H100 = registry.DeviceProps(sms=132, max_smem=232448, max_threads=2048)
 PCIE = registry.DeviceProps(sms=114, max_smem=232448, max_threads=2048)
 SERVED_MVM = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
+# Jamba-v0.1's projections (K, N): Mamba's in, x, dt and out, attention's
+# q/o and k/v, the MLP's gate/up and down
+JAMBA_MVM = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+             (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 
 
 @pytest.mark.parametrize("props", [H100, PCIE], ids=["sxm", "pcie"])
@@ -250,7 +254,7 @@ SERVED_MVM = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 @pytest.mark.parametrize("m", [1, 3, 4, 5, 16, 17, 33, 200])
 @pytest.mark.parametrize("k,n", [(1, 16), (64, 16), (300, 48), (2048, 256),
                                  (2048, 2048), (2048, 11008),
-                                 (11008, 2048), (2048, 12288)])
+                                 (11008, 2048), (2048, 12288)] + JAMBA_MVM)
 def test_mvm_plan_covers_k_once_and_fits(m, k, n, s, props):
     plan = tmvm.mvm_plan(m, k, n, s, props)
     assert plan.mt >= min(m, 16) and plan.mt in tmvm.ROW_TILES

@@ -113,7 +113,7 @@ def test_paged_chunk_then_decode_match(mode, dtype):
 
 
 def test_unported_families_raise():
-    cfg = tqwen.reduced().replace(attn_period=2)
+    cfg = tqwen.reduced().replace(is_encoder_decoder=True)
     with pytest.raises(NotImplementedError):
         tlm.init_params(cfg, torch.Generator().manual_seed(0),
                         device="cpu")

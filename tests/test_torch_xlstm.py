@@ -27,6 +27,7 @@ from repro.models import xlstm as jx
 from repro_torch import bridge
 from repro_torch.config import ModelConfig as TConfig
 from repro_torch.config import PUMConfig as TPUM, small_test_config as tsmall
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as ttr
 from repro_torch.models import xlstm as tx
@@ -176,10 +177,10 @@ def test_prefill_then_steps_equal_the_whole_sequence(kind):
 def test_lane_sum_is_a_sum():
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(3, 4, 512)).astype(np.float32))
-    np.testing.assert_allclose(tx._lane_sum(x).numpy(),
+    np.testing.assert_allclose(tlayers.lane_sum(x).numpy(),
                                x.double().sum(-1).numpy(), atol=1e-5)
     odd = x[..., :37]
-    np.testing.assert_allclose(tx._lane_sum(odd).numpy(),
+    np.testing.assert_allclose(tlayers.lane_sum(odd).numpy(),
                                odd.double().sum(-1).numpy(), atol=1e-5)
 
 
@@ -303,7 +304,7 @@ def test_ragged_period_takes_the_reference_layout():
 
 
 def test_unported_mixers_still_raise():
-    for kw in (dict(attn_period=2), dict(is_encoder_decoder=True)):
+    for kw in (dict(vision_stub=True), dict(is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):
             ttr.check_supported(tsmall(**kw))
     ttr.check_supported(tsmall(xlstm_slstm_every=2, d_ff=0))
