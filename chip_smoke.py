@@ -34,6 +34,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    x 288, dt 256 x 8192, out 8192 x 4096, q/o 4096 x 4096, k/v 4096 x
    1024, gate/up 4096 x 14336, down 14336 x 4096; M = 4 and 16) and K3
    at its layout (KV = 8, G = 4, hd = 128) at the same (S, T) cases.
+   Then K3 through the prefix cache's write table (``SHARED_COLS``: a
+   chunk of 16 at T = 81 whose rows store across shared and private
+   columns): its pools bit-equal to the plain version's, every block of
+   a shared column unchanged bit for bit.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -50,7 +54,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunk and one decode step on the ``cuda`` and the ``torch`` backends,
    logits compared; the f32 lm head's device time as a share of one
    decode graph replay's; the card's busy share under the profiler,
-   graphs and eager.
+   graphs and eager.  Then the prefix cache (``prefix_check``): a trace
+   of six requests over one 48-token prefix (the whole prefix, two
+   slices, two extensions, the whole prefix again at step 8) served
+   with the cache cold and warm and without it: completions equal bit
+   for bit, the hits, tokens skipped and blocks shared the trace
+   implies (``PREFIX_STATS``), the launch counts of each run, each step
+   built once and nothing new warm, no block live after a drain and a
+   flush; prefill chunks, seconds and tokens/s of the three runs.
 5. serve int8 — the same with ``int8`` weights.
 5b. serve bf16 — the same with the float weights unpacked: no MVM
    kernel launches, K3 one a layer a step and chunk.
@@ -143,7 +154,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    share (profiler) and the recurrences' (the cells timed alone), a
    64-token prompt's prefill device ms, graph build seconds, the
    recurrent bytes a slot beside Qwen2.5-3B's KV bytes, and the phase's
-   seconds.
+   seconds.  In ``pum``, phase 4's prefix-cache check, where the cache
+   holds recurrent snapshots and no block, then one 4096-token prompt
+   served twice with the cache (``long_snapshots``): the warm run
+   resumes at the snapshot of its 255th block edge and gives the cold
+   run's tokens; the snapshots' count and bytes against the budget.
 11. moe — OLMoE-1B-7B at full width and depth (16 layers, d_model
    2048, 64 experts top-8, random weights; 25.8 GB of f32 expert
    stacks), in ``pum`` and ``int8``: the CLI on phase 4's trace paged
@@ -201,7 +216,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phase 8's sampled requests: each completion equal to its request
    alone through ``generate_loop`` on ``cuda`` (contiguous windows) and
    on the ``torch`` backend (paged), bit for bit; paged on ``cuda`` the
-   first differences (K3's order) counted.  Prints phase 11's numbers
+   first differences (K3's order) counted; then phase 4's prefix-cache
+   check on that period, shared KV blocks and Mamba snapshots together.  Prints phase 11's numbers
    (a decode replay's split, the expert cast and products alone, a
    64-token prefill, the dropped share), the Mamba layers' conv and
    recurrence timed alone and their share of a replay, the SSM state
@@ -699,6 +715,69 @@ def check_trash_store(dev) -> None:
             raise AssertionError(f"K3's duplicate-trash store at S={s}")
 
 
+# the prefix cache's write table: a chunk of 16 at Qwen2.5-3B's layout
+# (T = 81), rows 0-3 with 3, 1, 1 and 2 leading table columns shared;
+# rows 0 and 3 store across a shared and a private column
+SHARED_COLS = [3, 1, 1, 2]
+SHARED_CI = [40, 64, 0, 20]
+
+
+def check_shared_cols(dev) -> None:
+    """K3 storing through a write table whose leading shared columns are
+    sent to the trash block (``kv_pool.mask_shared_cols``) and reading
+    through the real table: its pools bit-equal to the plain version's
+    (trash block included), every block in a shared column unchanged bit
+    for bit, the outputs within the stated tolerance and the one-ulp V
+    bound, two calls bit-equal."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.serve import kv_pool
+    t0 = time.perf_counter()
+    s, kv_len = 16, 81
+    q, k_new, v_new, k_pool, v_pool, table, _, _ = _attn_case(
+        dev, s, kv_len, seed=21)
+    ci = torch.tensor(SHARED_CI, dtype=torch.int32, device=dev)
+    shared = torch.tensor(SHARED_COLS, dtype=torch.int32, device=dev)
+    write = kv_pool.mask_shared_cols(table, shared)
+    args = (q, k_new, v_new, k_pool, v_pool, table, write, ci)
+    kp_ref, vp_ref, out_ref = ops.paged_attention(*args, kv_len=kv_len,
+                                                  backend="torch")
+    out_nudged = ops.paged_attention(*_v_nudged(args), kv_len=kv_len,
+                                     backend="torch")[2]
+    runs = []
+    for _ in range(2):
+        kp, vp = k_pool.clone(), v_pool.clone()
+        out = ops.paged_attention(*args[:3], kp, vp, *args[5:],
+                                  kv_len=kv_len, backend="cuda")[2]
+        runs.append((kp, vp, out))
+    torch.cuda.synchronize()
+    kp, vp, out = runs[0]
+    equal = all(torch.equal(a, kp_ref) and torch.equal(b, vp_ref)
+                for a, b, _ in runs)
+    same = torch.equal(runs[0][2], runs[1][2])
+    active = [0, 1, 3]
+    blocks = sorted({int(table[r, c]) for r in active
+                     for c in range(SHARED_COLS[r])})
+    kept = all(torch.equal(p[blocks], orig[blocks])
+               for p, orig in ((kp, k_pool), (vp, v_pool)))
+    # rows 0 and 3 store past their shared columns too: the pools moved
+    stored = not torch.equal(kp[1:], k_pool[1:])
+    o, r = out[active].float(), out_ref[active].float()
+    err = (o - r).abs().max().item()
+    tol = (out_nudged[active].float() - r).abs().max().item()
+    close = (torch.allclose(o, r, atol=ATTN_ATOL, rtol=ATTN_RTOL)
+             and 0 < tol and err <= tol)
+    log(f"paged_attention B=4 S={s} T={kv_len}, shared columns "
+        f"{SHARED_COLS} at cache indices {SHARED_CI}: pools bit-equal to "
+        f"the plain version's in two calls (trash block included): "
+        f"{equal}; the {len(blocks)} blocks of shared columns unchanged "
+        f"bit for bit: {kept}; private columns stored: {stored}; "
+        f"max|diff|={err:.3g} (one-ulp V bound {tol:.3g}); two calls "
+        f"bit-equal: {same}; {time.perf_counter() - t0:.1f} s")
+    if not (equal and kept and stored and close and same):
+        raise AssertionError("K3 through the prefix cache's write table")
+
+
 GF2_SHAPES = [(128, 128), (200, 129), (64, 32), (48, 16), (512, 48),
               (1000, 129)]
 GF2_ROWS = [1, 7, 130, 4096]
@@ -872,11 +951,13 @@ def tokens_of(completions: dict) -> dict[int, list[int]]:
 
 def timed_run(sched, requests) -> dict:
     """``sched.run(requests)``, with the launches, decode steps, chunks,
-    decode ms/step, tokens/s and peak memory of exactly that run."""
+    decode ms/step, prefill seconds, wall and graph-build seconds,
+    tokens/s and peak memory of exactly that run."""
     import torch
     from repro_torch.kernels import registry
     steps, chunks = sched.decode_steps, sched.prefill_chunks
-    secs = sched.decode_seconds
+    secs, pre = sched.decode_seconds, sched.prefill_seconds
+    built = sched.graphs_captured()[1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
@@ -888,6 +969,8 @@ def timed_run(sched, requests) -> dict:
     return dict(tokens=tokens_of(comps), launches=dict(registry.LAUNCHES),
                 steps=n, chunks=sched.prefill_chunks - chunks,
                 decode_ms=1e3 * (sched.decode_seconds - secs) / max(1, n),
+                prefill_s=sched.prefill_seconds - pre, wall_s=wall,
+                build_s=sched.graphs_captured()[1] - built,
                 tokens_per_s=sum(len(c.tokens) for c in comps.values())
                 / wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
@@ -1002,6 +1085,180 @@ def backend_parity(sched) -> None:
                              f"greedy differs")
 
 
+# the prefix cache's trace (phases 4, 5, 10 and 12): 4 slots, KV blocks
+# of 16, chunked prefill, one 48-token prefix drawn from the seed; six
+# greedy requests of 16 tokens: the whole prefix, prefix[:40],
+# prefix[:20], the prefix and 8 tokens, the prefix and 16 tokens (a
+# burst), the whole prefix again at step 8
+PREFIX_LEN = 48
+PREFIX_TAILS = [(48, 0), (40, 0), (20, 0), (48, 8), (48, 16), (48, 0)]
+PREFIX_ARRIVALS = [0, 0, 0, 0, 0, 8]
+PREFIX_GEOMETRY = dict(num_slots=4, max_len=81, kv_block_size=16,
+                       chunked_prefill=True)
+# what the trace implies, (hits, tokens skipped, blocks shared), summed
+# over the cold run and then over the cold and the warm run.  Requests
+# 0-3 take the 4 slots at step 0: nothing is cached, and by step 2 their
+# prefills have cached the prefix's blocks h0 (request 2's), h1 and h2
+# (request 0's).  Requests 4 and 5 wait for slots (FIFO).  A dense
+# stack: request 4 (64 tokens) attaches h0-h2 and skips 48 tokens;
+# request 5 (48, all cached) attaches 3 and copies the last on write,
+# skipping 47: cold (2, 95, 6), request 4 having cached h3.  Warm, all
+# hit: 47 + 32 + 16 + 48 + 63 + 47 tokens over 3 + 2 + 1 + 3 + 4 + 3
+# blocks.  A recurrent stack resumes only at a snapshot before its last
+# prompt token, at most (plen - 1) // 16 blocks in: cold 48 + 32
+# tokens, warm 32 + 32 + 16 + 48 + 48 + 32; xLSTM shares no block,
+# Jamba attaches the matched ones (cold 3 + 2, warm 2 + 2 + 1 + 3 + 3
+# + 2).
+PREFIX_STATS = {"dense": [(2, 95, 6), (8, 348, 22)],
+                "xlstm": [(2, 80, 0), (8, 288, 0)],
+                "hybrid": [(2, 80, 5), (8, 288, 18)]}
+
+
+def prefix_trace(vocab: int, seed: int = 0) -> list:
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=PREFIX_LEN).tolist()
+    return [Request(prefix[:n] + rng.integers(0, vocab, size=t).tolist(),
+                    max_tokens=16, arrival=a, rid=i)
+            for i, ((n, t), a) in enumerate(zip(PREFIX_TAILS,
+                                                PREFIX_ARRIVALS))]
+
+
+def prefix_check(label: str, family: str, cfg, params, smi: str
+                 ) -> dict[str, int]:
+    """The prefix cache on ``cfg`` served at full width on the card:
+    the trace (``prefix_trace``) on a scheduler with the cache twice,
+    cold then warm, and once on one without.  Gated: every completion of
+    both cached runs equals the uncached run's bit for bit; the
+    counters equal what the trace implies (``PREFIX_STATS``: a recurrent
+    stack's figures admit no match past ``(plen - 1) // 16`` blocks);
+    the MVM and K3
+    launch counts of each run on its own steps and chunks; each step
+    built once, as a graph, and the warm run builds nothing; after
+    ``drain()`` and ``flush_prefix_cache()`` no block is live.  Prints
+    prefill chunks, prefill seconds (host time of the chunk replays) and
+    tokens/s of the three runs, the latter also without the seconds the
+    run spent building graphs (the uncached and the cold run build their
+    schedulers' steps).
+    Returns the cold run's launches (the path's first run)."""
+    import gc
+    import torch
+    from repro_torch.serve import ContinuousBatchingScheduler
+    t0 = time.perf_counter()
+    dev = params["embed"].device
+    reqs = prefix_trace(cfg.vocab_size)
+    on = ContinuousBatchingScheduler(cfg, params, prefix_cache=True,
+                                     device=dev, **PREFIX_GEOMETRY)
+    off = ContinuousBatchingScheduler(cfg, params, device=dev,
+                                      **PREFIX_GEOMETRY)
+    runs = {"off": timed_run(off, reqs), "cold": timed_run(on, reqs)}
+    stats = [on.prefix_stats()]
+    progs, graphs = on.step_programs(), on.graphs_captured()[0]
+    runs["warm"] = timed_run(on, reqs)
+    stats.append(on.prefix_stats())
+    mode = cfg.pum.mode
+    for run in runs.values():
+        launch_gate(mode, cfg, run["steps"], run["chunks"], run["launches"])
+    built = [progs["decode"], *progs["chunk"].values()]
+    snaps = (on._prefix.snapshots, on._prefix.snapshot_bytes,
+             on._prefix.max_snapshots)
+    got = [tuple(st[k] for k in ("hits", "tokens_skipped", "blocks_shared"))
+           for st in stats]
+    on.drain()
+    on.flush_prefix_cache()
+    gates = {
+        "cold and warm completions equal the uncached run's":
+            runs["cold"]["tokens"] == runs["warm"]["tokens"]
+            == runs["off"]["tokens"],
+        "hits, tokens skipped and blocks shared as the trace implies":
+            got == PREFIX_STATS[family],
+        "each step built once, as a graph; the warm run builds nothing":
+            all(n == 1 for n in built) and graphs == len(built)
+            and on.step_programs() == progs,
+        "no block live after drain and flush":
+            on._alloc.live_blocks == 0 and on.prefix_cached_blocks == 0,
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    steady = {k: r["tokens_per_s"] * r["wall_s"] / (r["wall_s"]
+                                                     - r["build_s"])
+              for k, r in runs.items()}
+    log(f"prefix cache {label} {mode}: counters cold / cold + warm {got} "
+        f"(want {PREFIX_STATS[family]}); programs {progs}; " + "; ".join(
+            f"{k} {r['chunks']} prefill chunks in {r['prefill_s']:.3f} s, "
+            f"{r['steps']} decode steps, {r['tokens_per_s']:.2f} tokens/s "
+            f"({steady[k]:.2f} without {r['build_s']:.2f} s of graph "
+            f"builds)"
+            for k, r in runs.items())
+        + f"; {snaps[0]} snapshots held, {snaps[1] / 1e6:.1f} MB (at most "
+        f"{snaps[2]}); check {time.perf_counter() - t0:.1f} s; gates failed: "
+        f"{failed} on {smi}")
+    if failed:
+        raise AssertionError(f"prefix cache {label} {mode}: {failed}")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs["cold"]["launches"]
+
+
+def long_snapshots(cfg, params, smi: str) -> dict[str, int]:
+    """The recurrent snapshots of one long prompt: ``long_request``'s
+    LONG_PROMPT tokens on a paged, chunked scheduler of LONG_MAX_LEN
+    positions with the prefix cache, served twice.  The cold run
+    snapshots the slot's rows at each of its LONG_PROMPT / 16 block
+    edges (within ``scheduler.snapshot_budget``: half the card's memory
+    free when the scheduler is built); the warm run resumes at the
+    deepest edge before the last prompt token and feeds one chunk.
+    Gated: the warm tokens equal the cold ones, LONG_PROMPT - 16 tokens
+    skipped, the snapshots within their bound, the MVM launch counts of
+    each run, no entry left after a flush.  Prints the snapshots' count
+    and bytes beside the bound and both runs' prefill seconds.  Returns
+    the cold run's launches."""
+    import gc
+    import torch
+    from repro_torch.serve import ContinuousBatchingScheduler
+    t0 = time.perf_counter()
+    sched = ContinuousBatchingScheduler(
+        cfg, params, num_slots=PREFIX_GEOMETRY["num_slots"],
+        max_len=LONG_MAX_LEN, kv_block_size=16, chunked_prefill=True,
+        prefix_cache=True, device=params["embed"].device)
+    req = long_request(cfg.vocab_size)
+    cold = timed_run(sched, [req])
+    held = (sched._prefix.snapshots, sched._prefix.snapshot_bytes,
+            sched._prefix.max_snapshots)
+    warm = timed_run(sched, [req])
+    stats = sched.prefix_stats()
+    for run in (cold, warm):
+        launch_gate(cfg.pum.mode, cfg, run["steps"], run["chunks"],
+                    run["launches"], paged=False)
+    sched.drain()
+    sched.flush_prefix_cache()
+    gates = {
+        "the warm run gives the cold run's tokens":
+            warm["tokens"] == cold["tokens"],
+        "the warm run resumes at the deepest edge before the last token":
+            (stats["hits"], stats["tokens_skipped"], warm["chunks"])
+            == (1, LONG_PROMPT - 16, 1),
+        "the snapshots within their bound":
+            held[2] is None or held[0] <= held[2],
+        "no entry left after a flush": sched.prefix_stats()["entries"] == 0,
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"prefix cache {cfg.name} {cfg.pum.mode} long prompt: "
+        f"{LONG_PROMPT} tokens, {held[0]} snapshots held after the cold "
+        f"run, {held[1] / 1e9:.3f} GB ({held[1] / max(1, held[0]) / 1e6:.2f}"
+        f" MB each; at most {held[2]} within the budget); prefill cold "
+        f"{cold['chunks']} chunks in {cold['prefill_s']:.3f} s, warm "
+        f"{warm['chunks']} chunk in {warm['prefill_s']:.3f} s; check "
+        f"{time.perf_counter() - t0:.1f} s; gates failed: {failed} on {smi}")
+    if failed:
+        raise AssertionError(f"long-prompt snapshots: {failed}")
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cold["launches"]
+
+
 def kernel_times(run):
     """``run()`` under ``torch.profiler``: (wall s, device us by kernel
     name).  The profiler slows the host, so its wall time is not an
@@ -1091,8 +1348,9 @@ def step_device_ms(sched, temps=None) -> float:
     import numpy as np
     prog = sched.program("decode")
     b, w = sched.num_slots, sched.table_width
-    table = [np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w)] \
-        if sched.paged else []
+    # paged: each slot's own blocks, none shared
+    table = [np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w),
+             np.zeros(b, np.int32)] if sched.paged else []
     ones = np.ones(b, np.int32)
     temps = np.zeros(b, np.float32) if temps is None \
         else np.asarray(temps, np.float32)
@@ -1148,7 +1406,8 @@ def device_busy(sched, label: str, smi: str) -> None:
 def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
     """Phases 4-5b; returns each kernel's launches on the main path
     (each mode's first run), and by mode the greedy trace's tokens and
-    its decode ms/step, graphs and eager (phase 8 compares with them)."""
+    its decode ms/step, graphs and eager (phase 8 compares with
+    them)."""
     import gc
     import torch
     launches: dict[str, int] = {}
@@ -1181,7 +1440,8 @@ def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
             f"{steady['decode_ms']:.3f} / {eager['decode_ms']:.3f}, "
             f"tokens_per_s {steady['tokens_per_s']:.2f} / "
             f"{eager['tokens_per_s']:.2f}, peak_mem_GB "
-            f"{steady['peak_gb']:.2f} / {eager['peak_gb']:.2f} on {smi}")
+            f"{steady['peak_gb']:.2f} / {eager['peak_gb']:.2f}; eager run "
+            f"{eager['wall_s']:.1f} s on {smi}")
         greedy[mode] = dict(tokens=first, graph_ms=steady["decode_ms"],
                             eager_ms=eager["decode_ms"])
         backend_parity(sched)
@@ -1195,7 +1455,14 @@ def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
         device_busy(sched, f"{mode} graphs", smi)
         device_busy(eager_sched, f"{mode} eager", smi)
         greedy[mode]["replay_ms"] = step_ms
-        del res, sched, eager_sched
+        del eager_sched
+        gc.collect()
+        # the prefix cache in pum and int8 (phases 4 and 5)
+        if mode != "bf16":
+            for k, v in prefix_check("qwen2.5-3b", "dense", sched.cfg,
+                                     sched.params, smi).items():
+                launches[k] = launches.get(k, 0) + v
+        del res, sched
         gc.collect()
         torch.cuda.empty_cache()
     return launches, greedy
@@ -2460,9 +2727,16 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
         raise AssertionError(f"xlstm {mode}: {failed}")
     backend_parity(paged)
     xlstm_measure(paged, contig, smi)
+    cfg, params = paged.cfg, paged.params
     del runs, paged, contig, eager
     gc.collect()
     torch.cuda.empty_cache()
+    if mode == "pum":           # the prefix cache: snapshots, no blocks
+        for check in (prefix_check("xlstm-350m", "xlstm", cfg, params, smi),
+                      long_snapshots(cfg, params, smi)):
+            for k, v in check.items():
+                launches[k] = launches.get(k, 0) + v
+    del params
     for k, v in static_phase(mode, smi, XLSTM_STATIC_ARGS,
                              temps=(0.0,)).items():
         launches[k] = launches.get(k, 0) + v
@@ -3430,7 +3704,7 @@ def hybrid_run(mode: str, smi: str) -> dict[str, int]:
     return launches
 
 
-def dense_ffn_run(smi: str) -> None:
+def dense_ffn_run(smi: str) -> dict[str, int]:
     """The sharp gate on the Mamba mixer: Jamba's period with its MoE
     FFNs made dense (all 8 FFNs MLPs of d_ff 14336; no capacity couples
     the rows), ``pum``, phase 8's sampled requests: on contiguous windows
@@ -3438,7 +3712,8 @@ def dense_ffn_run(smi: str) -> None:
     on ``cuda`` bit for bit (both attend through the plain composition);
     paged, the same on the ``torch`` backend; paged on ``cuda`` (K3 sums
     in another order than the solo's attention) the first differences
-    are counted, not gated."""
+    are counted, not gated.  Then the prefix cache on the same period
+    (``prefix_check``), whose cold run's launches are returned."""
     import dataclasses
     import gc
     import torch
@@ -3478,7 +3753,12 @@ def dense_ffn_run(smi: str) -> None:
                                         kernel_backend="torch", **geometry)
     plain_t = tokens_of(plain.run(reqs))
     plain_solo = {r.rid: oracle_completion(plain.engine, r) for r in reqs}
-    del plain, params
+    del plain
+    gc.collect()
+    # the prefix cache: shared KV blocks and Mamba snapshots together
+    launches = prefix_check("jamba-v0.1 period, dense FFNs", "hybrid", cfg,
+                            params, smi)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     diff = first_difference(paged_t, solo)
@@ -3499,6 +3779,7 @@ def dense_ffn_run(smi: str) -> None:
         f"{time.perf_counter() - t0:.1f} s; gates failed: {failed} on {smi}")
     if failed:
         raise AssertionError(f"hybrid dense-FFN variant: {failed}")
+    return launches
 
 
 def hybrid_phase(smi: str) -> dict[str, int]:
@@ -3512,7 +3793,8 @@ def hybrid_phase(smi: str) -> dict[str, int]:
     for mode in ("pum", "int8"):
         for k, v in hybrid_run(mode, smi).items():
             launches[k] = launches.get(k, 0) + v
-    dense_ffn_run(smi)
+    for k, v in dense_ffn_run(smi).items():
+        launches[k] = launches.get(k, 0) + v
     log(f"hybrid: phase 12 in {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -3625,6 +3907,7 @@ def main(argv=None) -> int:
     for name, cases in xlstm_rows(check_xlstm_mvm(dev)).items():
         rows[name]["xlstm_shapes"] = cases
     rows["paged_attention"] = attention_row(check_attention(dev, gpu_name))
+    check_shared_cols(dev)
     for name, cases in check_moe_kernels(dev, gpu_name).items():
         rows[name]["moe_shapes"] = cases
     for name, cases in check_hybrid_kernels(dev, gpu_name).items():

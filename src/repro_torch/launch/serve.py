@@ -23,6 +23,12 @@ card serves one 8-layer period, which keeps the whole layout, through
 ``main(argv, cfg=configs.get("jamba-v0.1-52b").replace(num_layers=8))``
 (``chip_smoke.py``).  ``--reduced`` serves its miniature.
 
+``--prefix-cache`` shares the pool blocks of full prompt prefixes
+between requests (paged only) and prints its counters on a
+``prefix-cache: {json}`` line; ``--shared-prefix-len N`` starts every
+prompt of the trace with one common prefix of N tokens (a prompt no
+longer than N is a slice of it), the traffic the cache serves.
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through
@@ -44,6 +50,7 @@ beside the device it ran on.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -91,6 +98,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunked-prefill", action="store_true",
                     help="stream prompts in block-size chunks between "
                          "decode steps")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt-prefix blocks between "
+                         "requests (content-hashed, refcounted, "
+                         "copy-on-write at the boundary); requires "
+                         "--kv-block-size")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="give every request of the trace this many "
+                         "common leading prompt tokens (0: fully random "
+                         "prompts)")
     ap.add_argument("--kernel-backend", default="auto",
                     choices=["auto", "cuda", "torch"],
                     help="auto: the CUDA kernels on the card, the plain "
@@ -127,6 +143,7 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
         cfg, params, num_slots=args.batch_slots, max_len=max_len,
         kv_block_size=args.kv_block_size, num_kv_blocks=args.num_kv_blocks,
         chunked_prefill=args.chunked_prefill,
+        prefix_cache=args.prefix_cache,
         kernel_backend=None if args.kernel_backend == "auto"
         else args.kernel_backend, device=dev)
     del params
@@ -138,6 +155,7 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
                               max_prompt=args.prompt_len,
                               max_new=args.gen,
                               temperature_choices=(args.temperature,),
+                              shared_prefix_len=args.shared_prefix_len,
                               seed=args.seed)
     t0 = time.perf_counter()
     out = sched.run(reqs)
@@ -149,7 +167,8 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     # its outputs (a step's one-time build is not in it)
     decode_ms = 1e3 * sched.decode_seconds / max(1, sched.decode_steps)
     graphs, build_s = sched.graphs_captured()
-    chunked = ", chunked" if args.chunked_prefill else ""
+    chunked = (", chunked" if args.chunked_prefill else "") \
+        + (", prefix-cache" if args.prefix_cache else "")
     blocks = (f"blocks={sched.num_kv_blocks}" if kv_pool.has_kv_cache(cfg)
               else "no KV: 0 blocks a request")
     kv = (f"paged(block={args.kv_block_size}, {blocks}{chunked})"
@@ -167,9 +186,13 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
           f"a seed a request)")
     print(f"throughput_tok_per_s={toks / wall_s:.2f}")
     print(f"decode_ms_per_step={decode_ms:.3f}")
+    stats = sched.prefix_stats()
+    if args.prefix_cache:
+        print("prefix-cache:", json.dumps(stats))
     return {"scheduler": sched, "requests": reqs, "completions": out,
             "tokens": toks, "wall_s": wall_s, "decode_ms": decode_ms,
-            "setup_s": setup_s, "graphs": graphs, "build_s": build_s}
+            "setup_s": setup_s, "graphs": graphs, "build_s": build_s,
+            "prefix_stats": stats}
 
 
 def static_batch(cfg, params, args, dev: torch.device, max_len: int) -> dict:

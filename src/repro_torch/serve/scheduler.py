@@ -21,7 +21,16 @@ reference's two layouts:
   which the step writes back; admission resets the slot's rows to a
   fresh state first (Mamba's: a zero state and conv window).  A
   pure-recurrent stack (xLSTM) pages no KV: its requests take 0 blocks;
-  a hybrid one pages the KV of its attention layers only.
+  a hybrid one pages the KV of its attention layers only.  With
+  ``prefix_cache`` an admission first looks its prompt up in the prefix
+  cache (``kv_pool.PrefixCache``): the blocks of the longest cached
+  full-block prefix are attached read-only (the steps write those
+  columns to the trash block), a recurrent stack's rows are restored
+  from the snapshot taken at that prefix's edge instead of reset, and
+  only the tail is fed; a fully cached dense prompt copies its last
+  block into a private one and re-runs its last token there
+  (copy-on-write).  A completed prefill registers its full blocks, and
+  chunks that end on a block edge snapshot the recurrent rows.
 * **contiguous** (``kv_block_size = 0``, the reference's default): a
   ``[num_slots, max_len]`` window per layer.  Admission prefills the
   whole prompt at once, batch 1, into a window of the scheduler's own,
@@ -92,14 +101,24 @@ is dropped, and a row depends on its co-tenants only through the
 rounding of the float expert products, whose row count is the
 capacity (a float GEMM's rows may differ by an ulp between row counts).
 
+Prefix caching keeps the guarantee: sharing on == sharing off == the
+solo oracle, bit for bit, wherever the steps run the same arithmetic.
+A cached block holds the K/V the same chunk of the same prompt would
+write, a snapshot the rows the same chunks would leave, and the tail's
+chunks start on the same block edges as without the cache; a
+copy-on-write tail runs one token where the chunk would run it among
+others, and every row's numerics are its own.  MoE is outside it: only
+the tail's tokens take expert capacity.
+
 This slice serves the dense family, the xLSTM family (mLSTM and sLSTM
 mixers), the MoE family and the hybrid family (Mamba and attention
-mixers, dense and routed FFNs) at any temperature, each request with its
-own seed, and its draws are the reference's (``serve.prng`` reproduces its threefry
-keys).  Prefix caching, speculative decoding, tensor parallelism and
-fault-injection hooks of the JAX package are not ported yet; their
-arguments raise ``NotImplementedError`` (or, with the contiguous
-layout, the reference's ``ValueError``).
+mixers, dense and routed FFNs) at any temperature, each request with
+its own seed, and its draws are the reference's (``serve.prng``
+reproduces its threefry keys), with or without the prefix cache.
+Speculative decoding, tensor parallelism and the fault-injection hooks
+of the JAX package are not ported yet; their arguments raise
+``NotImplementedError`` (or, with the contiguous layout, the
+reference's ``ValueError``); ``cancel`` and ``drain`` are.
 """
 from __future__ import annotations
 
@@ -152,9 +171,12 @@ class Completion:
     rid: int
     prompt: list[int]
     tokens: list[int]                  # generated tokens, EOS included
-    finish_reason: str                 # "eos" | "length"
+    finish_reason: str                 # "eos" | "length" | "cancelled"
+    #                                    | "truncated"
     admitted_step: int
     finished_step: int
+    truncated: bool = False            # retired before its natural end
+    #                                    (cancel, drain)
 
 
 @dataclasses.dataclass
@@ -169,9 +191,30 @@ class TickResult:
 
 @dataclasses.dataclass
 class _PrefillJob:
+    """A slot mid-prefill.  With the prefix cache, ``pos`` starts past
+    the cached prefix; ``hashes`` are the prompt's full-block chain
+    hashes (reused at registration), ``snaps`` the recurrent rows
+    snapshotted at block edges, and ``cow_col``/``cow_dst`` a pending
+    copy-on-write of a fully cached prompt's last block (-1: none)."""
     req: Request
     prompt: list[int]
     pos: int = 0                       # prompt tokens already fed
+    hashes: list[str] = dataclasses.field(default_factory=list)
+    snaps: dict[int, list] = dataclasses.field(default_factory=dict)
+    cow_col: int = -1
+    cow_dst: int = -1
+
+
+def snapshot_budget(device: torch.device) -> int | None:
+    """The bytes the prefix cache's recurrent snapshots may hold: half
+    the device memory free when the scheduler is built (its weights,
+    pools and slot rows in place), so that the snapshots a long prompt
+    takes at its block edges cannot run the card out of memory.  None
+    on the CPU, where only the cache's entry count bounds them, as in
+    the reference."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0] // 2
 
 
 def _mask_block_table(block_table: torch.Tensor, active: torch.Tensor
@@ -185,7 +228,7 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
 
     (params, states, cur_tok [B,1], cache_index [B], keys [B,2],
      active [B] bool, temp [B] f32, eos [B], gen [B], max_toks [B]
-     [, block_table [B,W]])
+     [, block_table [B,W], shared_cols [B]])
       -> (states, tok [B], cache_index', step_keys [B,2], active', gen',
           done [B], logits [B,1,V])
 
@@ -193,9 +236,13 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
     ``kv_len`` (the engine window) the states are the paged pool and the
     step takes a block table, which it masks so that rows not decoding
     write to the trash block; without, they are the contiguous windows,
-    where every row writes at its own index.  Paged, the recurrent rows
-    of rows not decoding keep their values (the reference's
-    ``freeze_inactive_rows``).  Each row's key is folded
+    where every row writes at its own index.  ``shared_cols`` counts each
+    row's leading prefix-cache columns: the step reads through the
+    table and writes through a copy with those columns sent to the
+    trash block (``kv_pool.mask_shared_cols``; all zero without the
+    cache, so the step is the same program either way).  Paged, the
+    recurrent rows of rows not decoding keep their values (the
+    reference's ``freeze_inactive_rows``).  Each row's key is folded
     with its local step number (``gen - 1``, which wraps to 0xFFFFFFFF
     for an empty slot), as ``generate_loop`` folds with ``i``, and the
     folded keys come back for the host to keep.  The logits ride along
@@ -204,13 +251,15 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
     paged = kv_len is not None
 
     def slot_step(params, states, cur_tok, cache_index, keys, active, temp,
-                  eos, gen, max_toks, block_table=None):
+                  eos, gen, max_toks, block_table=None, shared_cols=None):
         step_keys = prng.fold_in(keys, gen - 1)
+        write_table = None
         if paged:
             block_table = _mask_block_table(block_table, active)
+            write_table = kv_pool.mask_shared_cols(block_table, shared_cols)
         logits, new_states = decode(params, states, cur_tok, cache_index,
                                     block_table=block_table,
-                                    write_table=block_table,
+                                    write_table=write_table,
                                     commit=not paged)
         if paged:
             # a mid-prefill row's recurrent state must not move between
@@ -244,6 +293,15 @@ class ContinuousBatchingScheduler:
     its CUDA graph; False dispatches every op of every step from Python,
     the counterpart of running the reference under ``jax.disable_jit()``.
     On the CPU the steps always run eagerly.
+
+    ``prefix_cache`` (paged only) shares the pool blocks of full prompt
+    prefixes between requests (``kv_pool.PrefixCache``, at most
+    ``num_kv_blocks`` entries): an admission attaches the longest cached
+    prefix read-only (a recurrent stack restores the slot's rows from
+    the snapshot taken at its edge) and prefills only the tail; a fully
+    cached dense prompt copies its last block into a private one and
+    re-runs its last token there.  The snapshots, those of prefills in
+    flight included, hold at most :func:`snapshot_budget` bytes.
     """
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
@@ -251,8 +309,8 @@ class ContinuousBatchingScheduler:
                  kv_block_size: int = 16, num_kv_blocks: int = 0,
                  chunked_prefill: bool = False, kernel_backend=None,
                  device: str | torch.device = "cuda",
-                 prefix_cache: bool = False, speculate_k: int = 0,
-                 mesh=None, cuda_graphs: bool = True):
+                 prefix_cache: bool = False,
+                 speculate_k: int = 0, mesh=None, cuda_graphs: bool = True):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if chunked_prefill and kv_block_size <= 0:
@@ -268,10 +326,10 @@ class ContinuousBatchingScheduler:
                 "speculative decoding rolls rejected draft KV writes "
                 "back through the paged pool; set kv_block_size > 0 to "
                 "enable it")
-        if prefix_cache or speculate_k or mesh is not None:
+        if speculate_k or mesh is not None:
             raise NotImplementedError(
-                "prefix caching, speculative decoding and tensor-parallel "
-                "serving are not ported yet")
+                "speculative decoding and tensor-parallel serving are not "
+                "ported yet")
         self.engine = ServeEngine(cfg, params, max_len=max_len,
                                   prepack=prepack,
                                   kernel_backend=kernel_backend,
@@ -283,6 +341,7 @@ class ContinuousBatchingScheduler:
         self.max_len = max_len
         self.paged = kv_block_size > 0
         self.chunked_prefill = chunked_prefill
+        self.prefix_caching = prefix_cache
         # pure-recurrent stacks page no KV, but still stream their
         # prompts in chunks through their slot's rows
         self._has_kv = kv_pool.has_kv_cache(cfg)
@@ -296,6 +355,14 @@ class ContinuousBatchingScheduler:
                 cfg, num_slots, max_len, num_blocks=self.num_kv_blocks,
                 block_size=kv_block_size, device=self.device)
             self._one: list[dict] = []
+            # a snapshot is one slot's recurrent rows; the budget bounds
+            # how many the cache and the prefills in flight hold
+            self._max_snapshots = None
+            budget = snapshot_budget(self.device) \
+                if prefix_cache and self._has_recurrent else None
+            if budget is not None:
+                self._max_snapshots = max(
+                    1, budget // kv_pool.slot_recurrent_bytes(self.states))
         else:
             self.block_size = self.table_width = self.num_kv_blocks = 0
             self.states = lm.init_state(cfg, num_slots, max_len,
@@ -319,10 +386,21 @@ class ContinuousBatchingScheduler:
         # freed memory
         lm.reset_states(self.cfg, self.states)
         lm.reset_states(self.cfg, self._one)
+        self._prefix: kv_pool.PrefixCache | None = None
         if self.paged:
             self._alloc = kv_pool.BlockAllocator(self.num_kv_blocks)
             self._block_table = np.zeros((b, self.table_width), np.int32)
+            # each row's leading columns the steps must not write
+            self._shared_cols = np.zeros((b,), np.int32)
             self._slot_blocks: list[list[int]] = [[] for _ in range(b)]
+            if self.prefix_caching:
+                # the root folds in the config and the block size, so no
+                # entry matches across engines whose numerics differ
+                self._prefix = kv_pool.PrefixCache(
+                    self._alloc, self.block_size,
+                    capacity=self.num_kv_blocks,
+                    root=f"{self.cfg!r}/bs={self.block_size}",
+                    max_snapshots=self._max_snapshots)
         self._prefills: dict[int, _PrefillJob] = {}
         self._cur_tok = np.zeros((b, 1), np.int32)
         self._cache_index = np.zeros((b,), np.int32)
@@ -338,12 +416,13 @@ class ContinuousBatchingScheduler:
         self._slot_admitted = np.zeros((b,), np.int64)
         self._events: list[tuple[int, int, int]] = []
         # lifetime dispatch counters (a contiguous admission's prefill
-        # counts as one chunk) and the host time spent in decode
-        # dispatches (each ends in a device-to-host copy, which waits
-        # for the step to finish)
+        # counts as one chunk) and the host time spent in decode and in
+        # prefill dispatches, builds excluded (each ends in a
+        # device-to-host copy, which waits for the step to finish)
         self.decode_steps = 0
         self.prefill_chunks = 0
         self.decode_seconds = 0.0
+        self.prefill_seconds = 0.0
 
     # -- admission ---------------------------------------------------------
 
@@ -374,18 +453,74 @@ class ContinuousBatchingScheduler:
                 return slot
         return None
 
+    def _prefix_peek(self, req: Request) -> tuple[int, list[str], bool]:
+        """The cache lookup for ``req``, moving nothing: (matched blocks,
+        chain hashes, whether the match needs a copy-on-write).  A
+        recurrent stack resumes only at a snapshot strictly before the
+        last prompt token; a dense one can take a fully cached prompt by
+        copying its last block and re-running the last token."""
+        plen = len(req.prompt)
+        hashes = self._prefix.hashes(req.prompt)
+        if self._has_recurrent:
+            n = self._prefix.match(hashes, need_snapshot=True,
+                                   limit=(plen - 1) // self.block_size)
+            return n, hashes, False
+        n = self._prefix.match(hashes)
+        return n, hashes, n > 0 and n * self.block_size == plen
+
+    def blocks_needed(self, req: Request) -> int:
+        """KV blocks admission would newly allocate for ``req`` (0 on
+        contiguous windows or without KV): with the prefix cache, the
+        total less the shared attachments, plus the copy-on-write
+        block of a fully cached prompt."""
+        if not self.paged:
+            return 0
+        total = self._blocks_for(req)
+        if self._prefix is None or total == 0:
+            return total
+        n, _, cow = self._prefix_peek(req)
+        return total - n + cow
+
+    @property
+    def free_blocks(self) -> int:
+        """KV blocks admission can spend now: the free list, plus cached
+        blocks no request references (evictable on demand); 0 on
+        contiguous windows."""
+        if not self.paged:
+            return 0
+        free = self._alloc.free_blocks
+        if self._prefix is not None:
+            free += self._prefix.evictable_blocks
+        return free
+
     def can_fund(self, req: Request) -> bool:
-        """A free slot and, paged, enough free blocks right now."""
+        """A free slot and, paged, enough free and evictable blocks net
+        of the request's cache hit, right now (advisory: nothing
+        moves)."""
         if self._free_slot() is None:
             return False
-        return not self.paged or self._alloc.can_alloc(self._blocks_for(req))
+        if not self.paged:
+            return True
+        if self._prefix is None:
+            return self._alloc.can_alloc(self._blocks_for(req))
+        total = self._blocks_for(req)
+        if total == 0:
+            return True
+        n, hashes, cow = self._prefix_peek(req)
+        return total - n + cow <= self._alloc.free_blocks \
+            + self._prefix.evictable_margin(exclude=hashes[:n])
+
+    def in_flight(self) -> list[int]:
+        """rids holding a slot (decoding or mid-prefill)."""
+        return [req.rid for req in self._slot_req if req is not None]
 
     def start_request(self, req: Request, step: int = 0
                       ) -> Completion | None:
         """Admit one request into a free slot.  Paged: claim its KV
-        blocks; its prompt is fed by the following ticks.  Contiguous:
-        prefill it now; returns its :class:`Completion` if it finished at
-        its first token, else None."""
+        blocks (with the prefix cache, attach its cached prefix); its
+        prompt's tail is fed by the following ticks.  Contiguous: prefill
+        it now; returns its :class:`Completion` if it finished at its
+        first token, else None."""
         self.validate_request(req)
         slot = self._free_slot()
         if slot is None:
@@ -393,24 +528,72 @@ class ContinuousBatchingScheduler:
                                 f"decode slots are occupied")
         if not self.paged:
             return self._admit(slot, req, step)
-        ids = self._alloc.alloc(self._blocks_for(req))
-        if ids is None:
+        if not self._admit_paged(slot, req, step):
             raise PoolExhausted(
-                f"request {req.rid}: needs {self._blocks_for(req)} KV "
-                f"blocks, the pool has {self._alloc.free_blocks} free")
-        self._slot_blocks[slot] = ids
+                f"request {req.rid}: needs {self.blocks_needed(req)} KV "
+                f"blocks, the pool has {self.free_blocks} free")
+        return None
+
+    def _admit_paged(self, slot: int, req: Request, step: int) -> bool:
+        """Claim ``slot`` and the request's blocks, or return False and
+        move nothing.  With the prefix cache: evict idle entries if the
+        free list alone cannot fund the private part, attach the matched
+        blocks read-only (one reference each), allocate the rest (all or
+        nothing: the attached blocks are released if that fails), and
+        for a fully cached dense prompt reserve the copy-on-write block
+        (the copy itself runs before the tail's chunk).  A recurrent
+        stack restores the slot's rows from the match's snapshot, or
+        resets them."""
+        total = self._blocks_for(req)
+        plen = len(req.prompt)
+        n_match, hashes, cow = 0, [], False
+        if self._prefix is not None:
+            n_match, hashes, cow = self._prefix_peek(req)
+        private = total - n_match + cow if n_match and self._has_kv \
+            else total
+        if self._prefix is not None and self._alloc.free_blocks < private:
+            self._prefix.evict_blocks(private - self._alloc.free_blocks,
+                                      exclude=hashes[:n_match])
+        shared: list[int] = []
+        if n_match and self._has_kv:
+            shared = self._prefix.attach(hashes[:n_match])
+        ids = self._alloc.alloc(private)
+        if ids is None:
+            if shared:                     # admission is atomic
+                self._alloc.release(shared)
+            return False
+        cow_dst, table_private = (ids[0], ids[1:]) if cow else (-1, ids)
+        row = shared + table_private
+        self._slot_blocks[slot] = shared + ids
         self._block_table[slot, :] = 0
-        self._block_table[slot, :len(ids)] = ids
+        self._block_table[slot, :len(row)] = row
+        self._shared_cols[slot] = len(shared)
+        # a fully cached dense prompt re-runs its last token (into the
+        # private copy); otherwise the tail starts at the first uncached
+        # block edge
+        tail_start = min(n_match * self.block_size, plen - 1) if cow \
+            else n_match * self.block_size
         if self._has_recurrent:
-            # the chunks accumulate the prompt's state in the slot's
-            # rows: scrub the retired occupant's state first
-            lm.reset_states(self.cfg, self.states, row=slot)
+            snap = self._prefix.snapshot_at(hashes[n_match - 1]) \
+                if n_match else None
+            if snap is not None:
+                kv_pool.restore_slot_recurrent(self.states, snap, slot)
+            else:
+                # the chunks accumulate the prompt's state in the slot's
+                # rows: scrub the retired occupant's state first
+                lm.reset_states(self.cfg, self.states, row=slot)
+        if self._prefix is not None and tail_start > 0:
+            self._prefix.hits += 1
+            self._prefix.tokens_skipped += tail_start
+            self._prefix.blocks_shared += len(shared)
         prompt = [int(t) for t in req.prompt]
-        self._prefills[slot] = _PrefillJob(req=req, prompt=prompt)
+        self._prefills[slot] = _PrefillJob(
+            req=req, prompt=prompt, pos=tail_start, hashes=hashes,
+            cow_col=n_match - 1 if cow else -1, cow_dst=cow_dst)
         self._slot_req[slot] = req
         self._slot_toks[slot] = []
         self._slot_admitted[slot] = step
-        return None
+        return True
 
     def _admit(self, slot: int, req: Request, step: int
                ) -> Completion | None:
@@ -450,11 +633,46 @@ class ContinuousBatchingScheduler:
 
     def _retire(self, slot: int) -> None:
         if self.paged:
+            # one reference a block: private blocks go back to the free
+            # list, shared ones stay live under the cache's reference
             self._alloc.release(self._slot_blocks[slot])
             self._slot_blocks[slot] = []
             self._block_table[slot, :] = 0
+            self._shared_cols[slot] = 0
         self._slot_req[slot] = None
         self._slot_toks[slot] = []
+
+    def _snapshot_room(self, pf: _PrefillJob) -> bool:
+        """Whether ``pf`` may take one more snapshot within the budget,
+        counting the cache's and those of every prefill in flight; at
+        the budget it frees the cache's LRU snapshot, else ``pf``'s
+        shallowest (a deeper resume point skips more)."""
+        cap = self._prefix.max_snapshots
+        held = self._prefix.snapshots + sum(
+            len(p.snaps) for p in self._prefills.values())
+        if cap is None or held < cap or self._prefix.drop_snapshot():
+            return True
+        if pf.snaps:
+            del pf.snaps[min(pf.snaps)]
+            return True
+        return False
+
+    def _register_prefix(self, slot: int, pf: _PrefillJob) -> None:
+        """Index every full prompt block of a completed prefill (the
+        attached prefix dedupes against its own entries), then widen the
+        slot's write protection over them: decode writes start past the
+        prompt, so this reroutes nothing and makes every cached block
+        read-only for its registering request too."""
+        n_full = len(pf.hashes)
+        if self._prefix is None or n_full == 0:
+            return
+        blocks = [int(b) for b in self._block_table[slot, :n_full]] \
+            if self._has_kv else [None] * n_full
+        self._prefix.register(pf.hashes, blocks,
+                              pf.snaps if self._has_recurrent else None)
+        if self._has_kv:
+            self._shared_cols[slot] = max(int(self._shared_cols[slot]),
+                                          n_full)
 
     # -- the steps ---------------------------------------------------------
 
@@ -480,34 +698,38 @@ class ContinuousBatchingScheduler:
             self._programs[key] = prog
         return prog
 
-    def _dispatch(self, key: str | int, *values) -> np.ndarray:
-        """One call of the step of ``key`` on ``values``."""
-        return self.program(key, *values)(*values)
+    def _dispatch(self, key: int, *values) -> np.ndarray:
+        """One call of the prefill step of ``key`` (a chunk or prompt
+        length) on ``values``, its host time (not its build) counted."""
+        prog = self.program(key, *values)
+        t0 = time.perf_counter()
+        ints = prog(*values)
+        self.prefill_seconds += time.perf_counter() - t0
+        return ints
 
     def _decode_fn(self):
         """The slot step over all slots: (cur_tok [B,1], cache_index,
         keys [B,2], active, temp (f32 bits), eos, gen, max_toks [B]
-        [, block_table [B,W]]) -> (tok, cache_index', active', gen',
-        done, and the two words of step_keys, packed as [7, B];
-        logits)."""
+        [, block_table [B,W], shared_cols [B]]) -> (tok, cache_index',
+        active', gen', done, and the two words of step_keys, packed as
+        [7, B]; logits)."""
         params, states, step = self.params, self.states, self._step
         b = self.num_slots
 
         def decode(cur_tok, cache_index, keys, active, temp, eos, gen,
-                   max_toks, *block_table):
+                   max_toks, *tables):
             with self.engine.backend_ctx():
                 _, tok, cache_index, keys, active, gen, done, logits = step(
                     params, states, cur_tok, cache_index, keys, active != 0,
-                    temp.view(torch.float32), eos, gen, max_toks,
-                    *block_table)
+                    temp.view(torch.float32), eos, gen, max_toks, *tables)
             ints = torch.cat([torch.stack([tok, cache_index,
                                            active.to(torch.int32), gen,
                                            done.to(torch.int32)]), keys.T])
             return ints, logits
 
-        table = [(b, self.table_width)] if self.paged else []
+        tables = [(b, self.table_width), (b,)] if self.paged else []
         return decode, [(b, 1), (b,), (b, 2), (b,), (b,), (b,), (b,),
-                        (b,)] + table
+                        (b,)] + tables
 
     def _prefill_fn(self, length: int):
         """A contiguous admission of a prompt of ``length`` tokens:
@@ -540,28 +762,57 @@ class ContinuousBatchingScheduler:
     def _chunk_fn(self, length: int):
         """One chunk of ``length`` prompt tokens of one slot against the
         shared pools: (tokens [1,length], start [1], table_row [1,W],
-        slot [1], key [1,2], temp [1] (f32 bits)) -> (the next token
-        drawn with ``key`` at ``temp`` [1, 1]; logits [1,1,V]).  Only the
-        last chunk's token is kept.  Recurrent layers run on a batch-1
-        copy of the slot's rows, written back after the chunk (the
-        reference's slot view and merge)."""
+        slot [1], key [1,2], temp [1] (f32 bits), shared_cols [1]) ->
+        (the next token drawn with ``key`` at ``temp`` [1, 1]; logits
+        [1,1,V]).  Only the last chunk's token is kept.  The chunk reads
+        through the table row and writes through it with the shared
+        columns sent to the trash block, as the decode step does: a
+        prefix-cache hit's tail attends to the shared K/V and never
+        stores there.  Recurrent layers run on a batch-1 copy of the
+        slot's rows, written back after the chunk (the reference's slot
+        view and merge)."""
         params, states, cfg, max_len = (self.params, self.states, self.cfg,
                                         self.max_len)
 
-        def chunk(tokens, start, table_row, slot, key, temp):
+        def chunk(tokens, start, table_row, slot, key, temp, shared_cols):
             row = slot.to(torch.int64)
             one = kv_pool.slot_states_view(states, row)
+            write_row = kv_pool.mask_shared_cols(table_row, shared_cols)
             with self.engine.backend_ctx():
                 logits, _ = lm.forward(
                     params, tokens, cfg, states=one, cache_index=start,
                     block_table=table_row, last_only=True, kv_len=max_len,
-                    write_table=table_row)
+                    write_table=write_row)
             kv_pool.slot_states_merge(states, one, row)
             return sample_token(logits, key, temp.view(torch.float32)), \
                 logits
 
         return chunk, [(1, length), (1,), (1, self.table_width), (1,),
-                       (1, 2), (1,)]
+                       (1, 2), (1,), (1,)]
+
+    @property
+    def prefix_cached_blocks(self) -> int:
+        """Pool blocks pinned by the prefix cache (0 when it is off)."""
+        return self._prefix.cached_blocks if self._prefix else 0
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every cache entry no live request pins; returns the
+        blocks released.  After :meth:`drain` and this, no block is
+        live."""
+        return self._prefix.flush() if self._prefix else 0
+
+    def prefix_stats(self) -> dict[str, int]:
+        """Lifetime prefix-cache counters (all zero when it is off):
+        admissions that skipped prefill work, prompt tokens skipped,
+        shared-block attachments, and the entries and blocks held now."""
+        if self._prefix is None:
+            return {"hits": 0, "tokens_skipped": 0, "blocks_shared": 0,
+                    "entries": 0, "cached_blocks": 0}
+        return {"hits": self._prefix.hits,
+                "tokens_skipped": self._prefix.tokens_skipped,
+                "blocks_shared": self._prefix.blocks_shared,
+                "entries": len(self._prefix),
+                "cached_blocks": self._prefix.cached_blocks}
 
     def step_programs(self) -> dict:
         """How many times each step was built: the counterpart of the
@@ -587,9 +838,25 @@ class ContinuousBatchingScheduler:
         return {k: p.aux[0] for k, p in self._programs.items() if p.aux}
 
     def _feed_prefills(self, step: int, out: dict[int, Completion]) -> int:
+        """Feed every mid-prefill slot one chunk (after a pending
+        copy-on-write); a slot whose prompt is complete registers its
+        prefix blocks and draws its first token.  Returns the
+        dispatches."""
         dispatches = 0
         for slot in sorted(self._prefills):
             pf = self._prefills[slot]
+            if pf.cow_col >= 0:
+                # a fully cached prompt: copy the shared last block into
+                # the reserved private one, repoint the column, and drop
+                # the shared reference
+                src = int(self._block_table[slot, pf.cow_col])
+                kv_pool.copy_block(self.states, src, pf.cow_dst)
+                self._block_table[slot, pf.cow_col] = pf.cow_dst
+                self._shared_cols[slot] = pf.cow_col
+                self._slot_blocks[slot].remove(src)
+                self._alloc.release([src])
+                pf.cow_col = pf.cow_dst = -1
+                dispatches += 1
             chunk = self.block_size if self.chunked_prefill \
                 else len(pf.prompt)
             c = min(chunk, len(pf.prompt) - pf.pos)
@@ -598,13 +865,24 @@ class ContinuousBatchingScheduler:
             temp = np.float32(req.temperature)
             tok0 = int(self._dispatch(c, pf.prompt[pf.pos:pf.pos + c],
                                       pf.pos, self._block_table[slot], slot,
-                                      key, temp.view(np.int32))[0, 0])
+                                      key, temp.view(np.int32),
+                                      self._shared_cols[slot])[0, 0])
             pf.pos += c
             dispatches += 1
             self.prefill_chunks += 1
+            if self._prefix is not None and self._has_recurrent \
+                    and pf.pos % self.block_size == 0:
+                # the chunk ended on a block edge: snapshot the slot's
+                # rows so that this prefix's entry can be resumed
+                i = pf.pos // self.block_size - 1
+                if i < len(pf.hashes) and pf.hashes[i] not in self._prefix \
+                        and self._snapshot_room(pf):
+                    pf.snaps[i] = kv_pool.snapshot_slot_recurrent(
+                        self.states, slot)
             if pf.pos < len(pf.prompt):
                 continue
             del self._prefills[slot]
+            self._register_prefix(slot, pf)
             if tok0 == req.eos_id or req.max_tokens == 1:
                 reason = "eos" if tok0 == req.eos_id else "length"
                 out[req.rid] = Completion(
@@ -627,7 +905,8 @@ class ContinuousBatchingScheduler:
             args = (self._cur_tok, self._cache_index, self._keys,
                     self._active, self._temp.view(np.int32), self._eos,
                     self._gen, self._max_toks) \
-                + ((self._block_table,) if self.paged else ())
+                + ((self._block_table, self._shared_cols) if self.paged
+                   else ())
             prog = self.program("decode", *args)
             t0 = time.perf_counter()
             ints = prog(*args)
@@ -656,6 +935,40 @@ class ContinuousBatchingScheduler:
             dispatches += 1
         events, self._events = self._events, []
         return TickResult(events, out, dispatches, decoded)
+
+    def _slot_of(self, rid: int) -> int | None:
+        for slot, req in enumerate(self._slot_req):
+            if req is not None and req.rid == rid:
+                return slot
+        return None
+
+    def cancel(self, rid: int, step: int = 0,
+               reason: str = "cancelled") -> Completion | None:
+        """Retire request ``rid`` mid-flight: free its slot and blocks
+        (one reference each, so shared blocks stay with their other
+        holders) and return its partial completion (``truncated``; the
+        tokens so far, none mid-prefill), or None if it is not in
+        flight.  Its co-tenants are untouched: a row's lane was isolated
+        every step, and the slot's next occupant starts afresh as after
+        a natural retirement."""
+        slot = self._slot_of(rid)
+        if slot is None:
+            return None
+        req = self._slot_req[slot]
+        tokens = list(self._slot_toks[slot])
+        self._active[slot] = False
+        self._prefills.pop(slot, None)
+        self._retire(slot)
+        return Completion(req.rid, [int(t) for t in req.prompt], tokens,
+                          reason, int(self._slot_admitted[slot]), step,
+                          truncated=True)
+
+    def drain(self, step: int = 0) -> dict[int, Completion]:
+        """Retire every request in flight, returning their partial
+        completions (finish reason ``"truncated"``).  Afterwards every
+        slot is free and no block is live but the prefix cache's."""
+        return {rid: self.cancel(rid, step, reason="truncated")
+                for rid in self.in_flight()}
 
     def run(self, requests: Sequence[Request], max_steps: int = 100_000
             ) -> dict[int, Completion]:
@@ -708,8 +1021,8 @@ class ContinuousBatchingScheduler:
                 if not self.can_fund(ready[0]):
                     raise SchedulerStalled(
                         f"request {ready[0].rid} can never be funded: "
-                        f"{self._alloc.free_blocks} KV blocks free, "
-                        f"{self._blocks_for(ready[0])} needed")
+                        f"{self.free_blocks} KV blocks free, "
+                        f"{self.blocks_needed(ready[0])} needed")
             step += 1
         return out
 
@@ -718,13 +1031,22 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
                        min_prompt: int = 1, max_prompt: int = 8,
                        max_new: int = 16, mean_interarrival: float = 0.0,
                        temperature_choices: Sequence[float] = (0.0,),
+                       shared_prefix_len: int = 0,
                        seed: int = 0) -> list[Request]:
     """A seeded trace: prompt lengths uniform in ``[min_prompt,
     max_prompt]``, ``max_new`` tokens each, no EOS, exponential
     inter-arrival gaps in scheduler steps (0 = a burst), and a
     temperature drawn from ``temperature_choices`` and a seed for each
     request.  The temperatures and seeds are drawn after everything
-    else, so the prompts and arrivals do not depend on them."""
+    else, so the prompts and arrivals do not depend on them.
+
+    ``shared_prefix_len > 0`` models the system-prompt and multi-turn
+    traffic the prefix cache serves, with the reference's semantics: one
+    prefix of that length is drawn, and a prompt of ``plen`` tokens is
+    ``prefix[:plen]`` (a fully cached prompt where the prefix is whole
+    blocks), or the prefix followed by the last ``plen -
+    shared_prefix_len`` tokens drawn for it.  The prefix is drawn after
+    everything else, so the trace at 0 is unchanged."""
     rng = np.random.default_rng(seed)
     t = 0.0
     reqs = []
@@ -737,6 +1059,12 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
             max_tokens=max_new, arrival=int(t), rid=i))
     temps = rng.choice(list(temperature_choices), size=n_requests)
     seeds = rng.integers(0, 2**31 - 1, size=n_requests)
+    if shared_prefix_len > 0:
+        prefix = rng.integers(0, vocab_size,
+                              size=shared_prefix_len).tolist()
+        reqs = [dataclasses.replace(r, prompt=prefix[:len(r.prompt)]
+                                    + list(r.prompt[shared_prefix_len:]))
+                for r in reqs]
     return [dataclasses.replace(r, temperature=float(temp), seed=int(s))
             for r, temp, s in zip(reqs, temps, seeds)]
 

@@ -75,6 +75,27 @@ def test_chunked_serving_builds_each_step_once(models):
     assert sched.graphs_captured() == (0, 0.0)      # no graphs on a CPU
 
 
+def test_prefix_cache_builds_each_step_once(models):
+    """With the prefix cache the decode step is still built once (its
+    shared-column input is zeros without a hit), the warm rerun adds
+    only the 1-token tail chunk of the fully cached prompt, and a third
+    run builds nothing; every completion equals its solo oracle."""
+    sched = _sched(models, prefix_cache=True)
+    reqs = _reqs([2 * BLOCK, 2 * BLOCK + 2])     # a shared 8-token prefix
+    cold = sched.run(reqs)
+    assert sched.step_programs() == {"decode": 1, "chunk": {2: 1, BLOCK: 1}}
+    assert sched.prefix_stats()["hits"] == 0
+    warm = sched.run(reqs)
+    want = {"decode": 1, "chunk": {1: 1, 2: 1, BLOCK: 1}}
+    assert sched.step_programs() == want
+    assert sched.prefix_stats()["hits"] == 2
+    again = sched.run(reqs)
+    assert sched.step_programs() == want
+    for req in reqs:
+        assert cold[req.rid].tokens == warm[req.rid].tokens == \
+            again[req.rid].tokens == oracle_completion(sched.engine, req)
+
+
 def test_compiled_and_eager_equal_oracle_and_jax(models):
     lengths = [BLOCK, 2 * BLOCK, 6]
     out = {flag: _sched(models, cuda_graphs=flag).run(_reqs(lengths))

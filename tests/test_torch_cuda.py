@@ -1009,3 +1009,73 @@ def test_mamba_steps_advance_once(dev, kind):
     (h and the conv window) one eager call leaves, bit for bit, beside
     a paged or contiguous KV layer and MoE FFNs."""
     _advance_once(dev, *_hybrid(dev, "pum"), kind)
+
+
+# ---------------------------------------------------------------------------
+# The prefix cache on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16])
+def test_paged_attention_keeps_shared_columns(dev, s):
+    """K3 storing through the prefix cache's write table (each row's
+    leading shared columns sent to the trash block) and reading through
+    the real one: its pools equal the plain version's bit for bit, the
+    blocks of shared columns are unchanged, the outputs within the
+    one-ulp V bound."""
+    from repro_torch.serve import kv_pool
+    args = _attn_args(dev, s=s, q_dtype=torch.bfloat16, hd=128, t=81,
+                      seed=7)
+    shared = torch.tensor([3, 1, 2, 2], dtype=torch.int32, device=dev)
+    args[6] = kv_pool.mask_shared_cols(args[5], shared)
+    before = [args[3].clone(), args[4].clone()]
+    rk, rv, _ = pa.paged_attention(*args, kv_len=81, backend="torch")
+    kk, kv, ko = pa.paged_attention(*args, kv_len=81)
+    torch.cuda.synchronize()
+    assert torch.equal(kk, rk) and torch.equal(kv, rv)
+    blocks = sorted({int(args[5][r, c]) for r in (0, 1, 3)
+                     for c in range(int(shared[r]))})
+    for now, old in zip((kk, kv), before):
+        assert torch.equal(now[blocks], old[blocks])
+    _assert_within_one_ulp_of_v(ko, args, 81, [0, 1])
+
+
+def _prefix_config(dev, family):
+    """A dense (reduced Qwen2.5-3B, widened) or hybrid (reduced
+    Jamba-v0.1, widened, its FFNs dense: no capacity couples the rows)
+    config in ``pum`` and its params."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.models import lm
+    if family == "dense":
+        return _served(dev, "pum")
+    cfg = _hybrid(dev, "pum")[0].replace(moe=MoEConfig())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return cfg, lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
+                                       cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "hybrid"])
+def test_prefix_cache_on_equals_off_on_the_card(dev, family):
+    """A shared-prefix trace on the ``cuda`` backend with graphs: served
+    cold and warm with the cache and once without, every completion the
+    same bit for bit; the cache hits, and a drain and a flush leave no
+    block live."""
+    from repro_torch.serve import (ContinuousBatchingScheduler,
+                                   synthetic_workload)
+    cfg, params = _prefix_config(dev, family)
+    kw = dict(num_slots=2, max_len=40, kv_block_size=8,
+              chunked_prefill=True, device=dev)
+    on = ContinuousBatchingScheduler(cfg, params, prefix_cache=True, **kw)
+    off = ContinuousBatchingScheduler(cfg, params, **kw)
+    reqs = synthetic_workload(6, cfg.vocab_size, min_prompt=4,
+                              max_prompt=28, max_new=6,
+                              mean_interarrival=1.0, shared_prefix_len=16,
+                              seed=7)
+    runs = [{r: c.tokens for r, c in s.run(reqs).items()}
+            for s in (on, on, off)]
+    assert runs[0] == runs[1] == runs[2]
+    assert on.prefix_stats()["hits"] > 0
+    on.drain()
+    on.flush_prefix_cache()
+    assert on._alloc.live_blocks == 0

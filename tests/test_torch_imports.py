@@ -5,10 +5,11 @@
   * every entry point called without ``device`` on a machine with no
     CUDA raises instead of running on the CPU;
   * the serving and AES CLIs run end to end when the CPU is asked for:
-    the scheduler over paged blocks or contiguous windows, and the
-    static batch.
+    the scheduler over paged blocks (with and without the prefix cache)
+    or contiguous windows, and the static batch.
 """
 import ast
+import json
 import pathlib
 
 import numpy as np
@@ -124,6 +125,26 @@ def test_serve_cli_samples_at_its_temperature(capsys):
     assert {r.temperature for r in reqs} == {0.7}
     assert len({r.seed for r in reqs}) == 3
     for req in reqs:
+        assert res["completions"][req.rid].tokens == oracle_completion(
+            res["scheduler"].engine, req)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_prefix_cache(arch, capsys):
+    """``--prefix-cache --shared-prefix-len 8``: the ``prefix-cache:``
+    line shows hits, the result carries the same counters, and every
+    completion equals its solo oracle."""
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--batch-slots", "2", "--requests", "5",
+                      "--min-prompt-len", "4", "--prompt-len", "12",
+                      "--gen", "4", "--kv-block-size", "4",
+                      "--chunked-prefill", "--prefix-cache",
+                      "--shared-prefix-len", "8"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("prefix-cache: "))
+    stats = json.loads(line[len("prefix-cache: "):])
+    assert stats == res["prefix_stats"] and stats["hits"] > 0
+    for req in res["requests"]:
         assert res["completions"][req.rid].tokens == oracle_completion(
             res["scheduler"].engine, req)
 
