@@ -10,8 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build   — compiles every ``src/repro_torch/**/csrc/*.cu`` for sm_90a,
    one ``nvcc`` per source, all started together.
 3. kernels — holds each hand-written kernel against its plain PyTorch
-   version at the main paths' shapes (bitslice MVM at M in {1, 4, 16}
-   and both GF(2) MVM entries, int8 and state bytes, bit for bit, paged
+   version at the main paths' shapes (bitslice MVM at M in {1, 4, 16},
+   and 20 at Qwen2.5-3B's, and both GF(2) MVM entries, int8 and state bytes, bit for bit, paged
    attention at the serve run's window T=81 and a long one, T=1024,
    within the stated tolerance and its pools bit for bit), checks that
    two calls on the same inputs give the same bits, and
@@ -99,10 +99,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the sampler's device ms at a decode step's shapes.  Then in ``pum``
    and ``int8``: the CLI at ``--temperature 0.7`` (the main path), and
    on its scheduler phase 4's six requests at temperatures [0, 0.7, 1,
-   0, 0.7, 1], a seed each, gated: each completion equal to the request
-   served alone through the same kernels, and on the ``torch`` backend
-   (where the scheduler and the contiguous solo loop run the same
-   arithmetic) to its solo ``generate_loop``; graphs and eager equal in
+   0, 0.7, 1], a seed each, gated: each of the first three (one at each
+   temperature) equal to the request served alone through the same
+   kernels, and on the ``torch`` backend (where the scheduler and the
+   contiguous solo loop run the same arithmetic) to its solo
+   ``generate_loop``; the tokens of phase 4's speculative run of the
+   trace (``pum``); graphs and eager equal in
    tokens and launches; the temperature-0 requests equal to phase 4's
    tokens; one decode program and nothing new built; the same seeds the
    same tokens and other seeds other tokens; at t = 1 some token off the
@@ -141,7 +143,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layers, random weights), in ``pum`` and ``int8``: the CLI on phase
    4's trace paged (blocks of 16, chunked prefill; no KV, so 0 blocks a
    request) and with ``--kv-block-size 0``, then on both schedulers
-   phase 8's six sampled requests, gated: each completion equal to the
+   phase 8's six sampled requests (16 tokens each in ``pum``, 8 in
+   ``int8``), gated: each completion equal to the
    request served alone through ``generate_loop`` on the ``cuda``
    backend, in both layouts; the greedy runs paged == contiguous; a
    second run builds nothing; one decode program; graphs == eager in
@@ -223,6 +226,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    recurrence timed alone and their share of a replay, the SSM state
    bytes a slot, the KV bytes a token, peak memory and the phase's
    seconds.
+Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
+   depth: 4 slots x 4 rows fill one K1/K2 row tile).  Phase 3 holds K3
+   at the verify shape (Qwen2.5-3B's heads, B = 4, S = 4, T = 81, one
+   row inactive, one whose last drafts pass the table width) against
+   its plain version, pools bit for bit, timed beside SDPA and its
+   bound, and prints how often a row of the RMSNorm, of the f32 lm head
+   and of a ``bf16`` projection takes other bits at 1 to 20 rows than
+   at 4 (``check_row_invariance``; the verify step runs its norms and
+   float products position by position).  In phases 4, 5 and 5b (Qwen2.5-3B ``pum``,
+   ``int8``, ``bf16``), 10 (xLSTM-350M ``pum``) and 12 (Jamba's
+   dense-FFN period), on the params
+   the phase holds: the phase's trace at k = 3 with the n-gram drafter
+   and with a replay of the k = 0 completions, both equal to the k = 0
+   tokens bit for bit; the launch counts of every run (a verify step
+   captures 252 MVM + 36 K3 at Qwen2.5-3B); one spec program and no
+   decode program, each step built once as a graph; on a burst of
+   exactly 4 requests from a fresh state at k = 0 and at k = 3 (each
+   drafter) the pools bit-equal but for the trash block 0 and the
+   recurrent rows (mLSTM/sLSTM c, n, m; Mamba h and conv) bit-equal.
+   Phase 4 also runs k = 4 (replay: 20 rows, a second row tile) and
+   phase 8's sampled trace at k = 3, whose tokens phase 8 gates against
+   its own.  Prints the acceptance rate, advance a step, decode ms/step
+   and tokens/s at k = 0, 3 and 4, a verify replay's device ms beside a
+   decode replay's, and the per-position recurrent state bytes.
 13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
    Every kernel of the main paths (phases 4-12) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
@@ -231,8 +258,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``cnn_shapes``), K1's and K2's their rows at M = 4096
    (``prefill_shape``), at xLSTM-350M's shapes (``xlstm_shapes``) and
    at OLMoE-1B-7B's (``moe_shapes``) and at Jamba-v0.1's
-   (``hybrid_shapes``), K3's at the MoE head layouts (``moe_shapes``)
-   and at Jamba's (``hybrid_shapes``).
+   (``hybrid_shapes``), K3's at the MoE head layouts (``moe_shapes``),
+   at Jamba's (``hybrid_shapes``) and at the verify shape
+   (``verify_shape``).  The launches count the spec runs' verify steps.
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
 ``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
@@ -360,13 +388,17 @@ class Rotating:
 # ---------------------------------------------------------------------------
 
 MVM_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
+# 16 rows: a prefill chunk, or a verify step at k = 3 (Qwen2.5-3B's
+# sweep adds 20, a verify step at k = 4: a full row tile and a partial
+# one)
 MVM_ROWS = [1, 4, 16]
 # Qwen2.5-3B's projections of one layer by (K, N): q and o, k and v,
 # gate and up, down; 36 layers
 MVM_PER_LAYER = {(2048, 2048): 2, (2048, 256): 2, (2048, 11008): 2,
                  (11008, 2048): 1}
 LAYERS = 36
-STEP_ROWS = {4: "decode step", 16: "prefill chunk"}
+STEP_ROWS = {4: "decode step", 16: "prefill chunk or verify step (k = 3)",
+             20: "verify step (k = 4)"}
 
 
 def deterministic(fn) -> bool:
@@ -482,11 +514,13 @@ def mvm_sweep(dev, shapes: dict, layers: int, label: str,
               rows: list[int]) -> list[dict]:
     """``mvm_case`` over ``shapes`` ((K, N) -> projections of that shape
     a forward pass) at each M of ``rows``; then K1's and K2's summed
-    device time over a decode step (M=4) and a prefill chunk (M=16)
-    beside their bound.  Returns every case's row."""
+    device time over a decode step (M=4), a prefill chunk or verify step
+    at k = 3 (M=16) and a verify step at k = 4 (M=20), where ``rows``
+    holds them, beside their bound.  Returns every case's row."""
     import torch
     g = torch.Generator(device=dev).manual_seed(0)
-    step = {(name, m): [0.0, 0.0] for m in STEP_ROWS for name in ("K1", "K2")}
+    step = {(name, m): [0.0, 0.0] for m in STEP_ROWS if m in rows
+            for name in ("K1", "K2")}
     cases = []
     for (k, n), count in shapes.items():
         planes, one = mvm_weights(dev, g, k, n)
@@ -509,7 +543,8 @@ def check_mvm(dev) -> dict[str, dict]:
     """Phase 3's MVM checks at Qwen2.5-3B's shapes; K1's and K2's rows
     of the kernels line (M=4, 2048 x 11008)."""
     cases = mvm_sweep(dev, {s: LAYERS * c for s, c in MVM_PER_LAYER.items()},
-                      LAYERS, "Qwen2.5-3B", MVM_ROWS)
+                      LAYERS, "Qwen2.5-3B",
+                      MVM_ROWS + [4 * (SPEC_K_WIDE + 1)])
     case = next(c for c in cases if (c["K1"]["M"], c["K1"]["K"],
                                      c["K1"]["N"]) == (4, 2048, 11008))
     return {name: {k: v for k, v in case[kern].items()
@@ -546,6 +581,9 @@ def _attn_case(dev, s: int, kv_len: int, seed: int, heads=QWEN_HEADS):
     table[2] = 0
     if s == 1:
         ci = [kv_len // 2, kv_len - 11, 5, w * bs + 3]
+    elif s == SPEC_K + 1:
+        # a verify step: row 3's last two drafts past the table width
+        ci = [kv_len // 2 - 2, kv_len - s - 1, 0, w * bs - 2]
     else:
         ci = [kv_len // 2 - 8, kv_len - s - 1, 0, w * bs - 8]
     cache_index = torch.tensor(ci, dtype=torch.int32, device=dev)
@@ -1297,15 +1335,16 @@ def profiled(run) -> tuple[float, float, str] | None:
     return wall, sum(by_name.values()) / 1e6, top_kernels(by_name)
 
 
-def like(sched, cuda_graphs: bool, kernel_backend=None):
-    """A fresh scheduler of ``sched``'s geometry on its params."""
+def like(sched, cuda_graphs: bool = True, kernel_backend=None, **kw):
+    """A fresh scheduler of ``sched``'s geometry on its params (``kw``:
+    more constructor arguments, such as ``speculate_k``)."""
     from repro_torch.serve import ContinuousBatchingScheduler
     return ContinuousBatchingScheduler(
         sched.cfg, sched.params, num_slots=sched.num_slots,
         max_len=sched.max_len, kv_block_size=sched.block_size,
         num_kv_blocks=sched.num_kv_blocks,
         chunked_prefill=sched.chunked_prefill, device=sched.device,
-        cuda_graphs=cuda_graphs, kernel_backend=kernel_backend)
+        cuda_graphs=cuda_graphs, kernel_backend=kernel_backend, **kw)
 
 
 def graph_vs_eager(sched) -> None:
@@ -1403,11 +1442,274 @@ def device_busy(sched, label: str, smi: str) -> None:
         f"({100 * busy / wall:.1f} % busy) on {smi}; top: {top}")
 
 
+# ---------------------------------------------------------------------------
+# Speculative decoding (phases 3, 4, 5, 8, 10 and 12)
+# ---------------------------------------------------------------------------
+
+# the card's draft depth: 4 slots x (k + 1) = 16 rows, one K1/K2 row
+# tile; k = 4 gives 20 rows, which take a second tile
+SPEC_K = 3
+SPEC_K_WIDE = 4
+
+
+def check_row_invariance(dev, smi: str) -> None:
+    """Whether a row's bits depend on how many rows run beside it, at
+    Qwen2.5-3B's widths: the RMSNorm (a mean over 2048 lanes), the f32
+    lm head ([M, 1, 2048] x [2048, 152064]) and a ``bf16`` gate
+    projection ([M, 1, 2048] x [2048, 11008]), each at M = 1, 8, 12, 16
+    and 20 rows against M = 4 (a decode step's), on the first min(M, 4)
+    rows, over fresh random draws (200 for the norm, 50 for the
+    projection, 20 for the head): the draws in which a row differs.
+    Printed, not gated: the verify step runs its norms and float
+    products position by position (``pum_linear.positionwise``) because
+    of what this shows."""
+    import torch
+    from repro_torch.models import layers
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = {"scale": torch.randn((2048,), generator=g, device=dev)}
+    head = torch.randn((2048, 152064), generator=g, device=dev) * 0.02
+    gate = (torch.randn((2048, 11008), generator=g, device=dev)
+            * 0.02).to(torch.bfloat16)
+    cases = {"rmsnorm": (200, torch.bfloat16,
+                         lambda x: layers.rmsnorm(p, x)),
+             "lm head": (20, torch.float32, lambda x: torch.matmul(x, head)),
+             "bf16 projection": (50, torch.bfloat16,
+                                 lambda x: torch.matmul(x, gate))}
+    differ = {}
+    for name, (draws, dtype, fn) in cases.items():
+        differ[name] = dict.fromkeys((1, 8, 12, 16, 20), 0)
+        for _ in range(draws):
+            x = torch.randn((20, 1, 2048), generator=g,
+                            device=dev).to(dtype)
+            at4 = fn(x[:4])
+            for m in differ[name]:
+                r = min(m, 4)
+                differ[name][m] += not torch.equal(fn(x[:m])[:r], at4[:r])
+    log(f"row invariance at Qwen2.5-3B's widths, draws in which a row at M "
+        f"rows differs from it at M = 4: {differ} (of 200 / 20 / 50) on "
+        f"{smi}")
+
+
+class SpecDrafter:
+    """A spec scheduler's drafter, switched between runs of one
+    scheduler (so each depth builds its steps once): the n-gram drafter
+    (prompt lookahead, ``serve.spec.NgramDrafter``), or a replay of
+    recorded completions, which proposes what the model will emit (every
+    draft is accepted but past a request's end)."""
+
+    def __init__(self):
+        from repro_torch.serve.spec import NgramDrafter
+        self.ngram = NgramDrafter()
+        self.sequences: list[tuple[int, ...]] = []
+
+    def use(self, sequences=()):
+        """Replay ``sequences`` (prompt + tokens each), or with none the
+        n-gram drafter."""
+        self.sequences = [tuple(int(t) for t in q) for q in sequences]
+        return self
+
+    def propose(self, context, k):
+        if not self.sequences:
+            return self.ngram.propose(context, k)
+        key = tuple(int(t) for t in context)
+        for q in self.sequences:
+            if q[:len(key)] == key and len(q) > len(key):
+                return list(q[len(key):len(key) + k])
+        return []
+
+
+def spec_run(sched, requests) -> dict:
+    """``timed_run`` with the run's own ``spec_stats()`` counters and
+    its tokens/s without the seconds it spent building graphs."""
+    before = sched.spec_stats()
+    run = timed_run(sched, requests)
+    after = sched.spec_stats()
+    st = {k: after[k] - before[k]
+          for k in ("steps", "rows", "proposed", "accepted", "emitted")}
+    st["acceptance_rate"] = st["accepted"] / max(1, st["proposed"])
+    st["advance_per_step"] = st["emitted"] / max(1, st["rows"])
+    run["spec"] = st
+    run["steady_tokens_per_s"] = run["tokens_per_s"] * run["wall_s"] / (
+        run["wall_s"] - run["build_s"])
+    return run
+
+
+def spec_device_ms(sched) -> float:
+    """Device time of one replay of the spec graph between CUDA events:
+    every slot decoding at a depth of 60 tokens through its own blocks,
+    greedy, the drafts zeros (the replay's work does not depend on what
+    it accepts)."""
+    import numpy as np
+    prog = sched.program("spec")
+    b, w, k = sched.num_slots, sched.table_width, sched.speculate_k
+    ones = np.ones(b, np.int32)
+    keys = np.stack([np.zeros(b, np.int32), np.arange(b, dtype=np.int32)],
+                    axis=1)
+    prog.stage(np.zeros((b, 1), np.int32), np.zeros((b, k), np.int32),
+               60 * ones, keys, ones, np.zeros(b, np.int32), -ones, ones,
+               (1 << 20) * ones,
+               np.arange(1, b * w + 1, dtype=np.int32).reshape(b, w),
+               np.zeros(b, np.int32))
+    return event_ms(prog.launch, reps=20)
+
+
+def replay_split(prog, reps: int = 5) -> str:
+    """A compiled step's replays on its staged inputs under the
+    profiler: device ms a replay in K1/K2 (``bitslice_mvm_kernel``), K3
+    (its store and attention kernels), cuBLAS GEMMs (the f32 lm head)
+    and everything else."""
+    _, by_name = kernel_times(lambda: [prog.launch() for _ in range(reps)])
+    if not by_name:
+        return "not measured (the profiler saw no device time)"
+    parts = {"K1/K2": 0.0, "K3": 0.0, "GEMM": 0.0, "rest": 0.0}
+    for name, us in by_name.items():
+        key = ("K1/K2" if "bitslice_mvm_kernel" in name else
+               "K3" if "store_kernel" in name
+               or "paged_attention_kernel" in name else
+               "GEMM" if "gemm" in name.lower() else "rest")
+        parts[key] += us / 1e3 / reps
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) \
+        + f" (total {sum(parts.values()):.3f})"
+
+
+def same_end_state(a, b) -> bool:
+    """The pools of two schedulers bit-equal but for the trash block 0,
+    and their recurrent rows (xLSTM's c, n, m; Mamba's h and conv
+    window) bit-equal."""
+    import torch
+    from repro_torch.serve import kv_pool
+    return all(torch.equal(x[n][1:], y[n][1:]) if kv_pool.is_paged_cache(x)
+               else torch.equal(x[n], y[n])
+               for x, y in zip(a.states, b.states) for n in x)
+
+
+def spec_check(label: str, sched, requests, want: dict, smi: str, *,
+               wide: bool = False, sampled=None) -> dict:
+    """Speculative decoding on ``sched``'s model at full width, beside
+    ``sched`` itself (k = 0, its geometry), whose run of ``requests``
+    gave ``want``.  A scheduler at k = SPEC_K serves ``requests`` with
+    the n-gram drafter, then with a replay of ``want``.  Gated: both give
+    ``want`` bit for bit; each step, chunk and spec step launches the
+    forward's MVMs and K3 calls (``launch_gate``), the spec graph's
+    capture 252 MVM + 36 K3 at Qwen2.5-3B; one spec program and no
+    decode program, each built once as a graph; on a burst of exactly
+    ``num_slots`` requests (``requests``' first, all at step 0) served
+    from a fresh state at k = 0 and at k = SPEC_K with each drafter, the
+    pools bit-equal but for the trash block 0 and the recurrent rows
+    bit-equal.  ``wide``: a scheduler at k = SPEC_K_WIDE with the
+    replay drafter gives ``want`` too (20 rows a verify step: a second
+    K1/K2 row tile).  ``sampled``: requests at other temperatures, whose
+    k = SPEC_K tokens (n-gram) are returned for phase 8's gate.  Prints
+    the acceptance rate, advance a step, decode ms/step and tokens/s
+    without graph builds at k = 0 and each depth and drafter, and a
+    verify replay's device ms beside a decode replay's.  Returns the
+    n-gram run's launches (the spec path's first run) and, with
+    ``sampled``, its tokens."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.serve import kv_pool
+    t0 = time.perf_counter()
+    cfg, mode = sched.cfg, sched.cfg.pum.mode
+    mvm, attn = per_pass(cfg)
+    replay = [list(r.prompt) + want[r.rid] for r in requests]
+    drafter = SpecDrafter()
+    spec = like(sched, speculate_k=SPEC_K, drafter=drafter)
+    runs = {"k=0": timed_run(sched, requests)}
+    runs["k=0"]["steady_tokens_per_s"] = runs["k=0"]["tokens_per_s"]
+    runs["ngram"] = spec_run(spec, requests)
+    drafter.use(replay)
+    runs["replay"] = spec_run(spec, requests)
+    progs, graphs = spec.step_programs(), spec.graphs_captured()[0]
+    verify_launches = dict(spec.program("spec").launches)
+    out = {"launches": runs["ngram"]["launches"]}
+    if sampled is not None:
+        drafter.use()
+        out["sampled"] = spec_run(spec, sampled)["tokens"]
+    if wide:
+        wide_sched = like(sched, speculate_k=SPEC_K_WIDE,
+                          drafter=SpecDrafter().use(replay))
+        runs["k=4 replay"] = spec_run(wide_sched, requests)
+        wide_ms = spec_device_ms(wide_sched)
+        wide_split = replay_split(wide_sched.program("spec"))
+        del wide_sched
+    for run in runs.values():
+        launch_gate(mode, cfg, run["steps"], run["chunks"], run["launches"])
+    burst = [dataclasses.replace(r, arrival=0)
+             for r in requests[:sched.num_slots]]
+    sched._reset()
+    base = tokens_of(sched.run(burst))
+    burst_ok = {}
+    for name, seqs in (("ngram", ()), ("replay", replay)):
+        spec._reset()
+        drafter.use(seqs)
+        burst_ok[name] = (tokens_of(spec.run(burst)) == base
+                          and same_end_state(sched, spec))
+    decode_ms = step_device_ms(sched)
+    verify_ms = spec_device_ms(spec)
+    if wide:                  # where a verify replay's time goes
+        splits = {"decode (k = 0)": replay_split(sched.program("decode")),
+                  f"verify (k = {SPEC_K})": replay_split(
+                      spec.program("spec")),
+                  f"verify (k = {SPEC_K_WIDE})": wide_split}
+    want_launches = {k: v for k, v in (
+        (MVM_OF_MODE[mode], mvm), ("paged_attention", attn)) if k and v}
+    gates = {
+        f"k = {SPEC_K} gives the k = 0 tokens, n-gram and replay drafters":
+            runs["ngram"]["tokens"] == runs["replay"]["tokens"] == want
+            == runs["k=0"]["tokens"],
+        "one spec program and no decode program, each step built once "
+        "as a graph":
+            progs["decode"] == 0 and progs["spec"] == 1
+            and all(n == 1 for n in progs["chunk"].values())
+            and graphs == 1 + len(progs["chunk"])
+            and spec.step_programs() == progs,
+        f"a verify step launches {want_launches}":
+            verify_launches == want_launches,
+        "on a burst of num_slots requests the pool (block 0 excluded) and "
+        "the recurrent rows equal a k = 0 replay's, each drafter":
+            all(burst_ok.values()),
+    }
+    if wide:
+        gates[f"k = {SPEC_K_WIDE} (replay) gives the k = 0 tokens"] = \
+            runs["k=4 replay"]["tokens"] == want
+    failed = [k for k, ok in gates.items() if not ok]
+    rows = kv_pool.slot_recurrent_bytes(spec.states)
+    log(f"speculative {label} {mode}: programs {progs}; a verify step's "
+        f"launches {verify_launches} (replays counted) at {sched.num_slots}"
+        f" x {SPEC_K + 1} rows; " + "; ".join(
+            f"{k}: {r['steps']} decode steps + {r['chunks']} chunks"
+            + (f", acceptance {r['spec']['acceptance_rate']:.4f}, advance "
+               f"{r['spec']['advance_per_step']:.4f} a step"
+               if "spec" in r else "")
+            + f", decode_ms_per_step {r['decode_ms']:.3f}, tokens_per_s "
+            f"{r['steady_tokens_per_s']:.2f} without graph builds"
+            for k, r in runs.items())
+        + f"; device ms of a replay: decode (k = 0) {decode_ms:.4f}, "
+        f"verify (k = {SPEC_K}) {verify_ms:.4f}"
+        + (f", verify (k = {SPEC_K_WIDE}) {wide_ms:.4f}" if wide else "")
+        + f"; per-position recurrent state {sched.num_slots} x "
+        f"{SPEC_K + 1} x {rows / 1e6:.2f} MB = "
+        f"{sched.num_slots * (SPEC_K + 1) * rows / 1e9:.3f} GB; check "
+        f"{time.perf_counter() - t0:.1f} s; gates failed: {failed} on {smi}")
+    if wide:
+        log(f"speculative {label} {mode}: device ms a replay under the "
+            f"profiler, " + "; ".join(f"{k}: {v}" for k, v in splits.items())
+            + f" on {smi}")
+    if failed:
+        raise AssertionError(f"speculative {label} {mode}: {failed}")
+    del spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
     """Phases 4-5b; returns each kernel's launches on the main path
     (each mode's first run), and by mode the greedy trace's tokens and
     its decode ms/step, graphs and eager (phase 8 compares with
     them)."""
+    import dataclasses
     import gc
     import torch
     launches: dict[str, int] = {}
@@ -1457,11 +1759,21 @@ def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
         greedy[mode]["replay_ms"] = step_ms
         del eager_sched
         gc.collect()
-        # the prefix cache in pum and int8 (phases 4 and 5)
+        # the prefix cache in pum and int8 (phases 4 and 5), speculative
+        # decoding in every mode; phase 8 gates the spec run of its trace
         if mode != "bf16":
             for k, v in prefix_check("qwen2.5-3b", "dense", sched.cfg,
                                      sched.params, smi).items():
                 launches[k] = launches.get(k, 0) + v
+        sampled = [dataclasses.replace(r, temperature=t, seed=s)
+                   for r, t, s in zip(res["requests"], SAMPLED_TEMPS,
+                                      SAMPLED_SEEDS)] \
+            if mode == "pum" else None
+        spec = spec_check("qwen2.5-3b", sched, res["requests"], first,
+                          smi, wide=mode == "pum", sampled=sampled)
+        for k, v in spec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        greedy[mode]["spec_sampled"] = spec.get("sampled")
         del res, sched
         gc.collect()
         torch.cuda.empty_cache()
@@ -1995,6 +2307,9 @@ def sampled_run(mode: str, greedy: dict, sampler_ms: float,
         "at t = 1.0 a token differs from the greedy one":
             any(tokens[r] != greedy["tokens"][r] for r in hottest),
     }
+    if mode == "pum":
+        gates[f"phase 4's speculative run (k = {SPEC_K}, n-gram) of this "
+              f"trace gave these tokens"] = greedy["spec_sampled"] == tokens
     for run in (first, again, reseeded, eager):
         launch_gate(mode, cfg, run["steps"], run["chunks"],
                     run["launches"])
@@ -2670,6 +2985,7 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
     progs = {k: s.step_programs() for k, s in (("paged", paged),
                                                ("contiguous", contig))}
     again = timed_run(paged, runs["paged"]["requests"])
+    t0 = time.perf_counter()
     sampled = {"paged": timed_run(paged, reqs),
                "contiguous": timed_run(contig, reqs)}
     eager = {"paged": timed_run(like(paged, cuda_graphs=False), reqs),
@@ -2677,6 +2993,7 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
     t1 = time.perf_counter()
     solo = {r.rid: oracle_completion(paged.engine, r) for r in reqs}
     solo_s = time.perf_counter() - t1
+    sampled_s = time.perf_counter() - t0
     rule = {k: advance_once(s) for k, s in (("paged", paged),
                                             ("contiguous", contig))}
     bad = {k: nonfinite(s) for k, s in (("paged", paged),
@@ -2712,7 +3029,8 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
     log(f"xlstm {mode}: 6 requests at temperatures {list(SAMPLED_TEMPS)}, "
         f"seeds {list(SAMPLED_SEEDS)}; paged {sampled['paged']['steps']} "
         f"decode steps + {sampled['paged']['chunks']} chunks, launches "
-        f"{sampled['paged']['launches']}; solo runs {solo_s:.1f} s; first "
+        f"{sampled['paged']['launches']}; the sampled trace's runs "
+        f"{sampled_s:.1f} s, of them the solo runs {solo_s:.1f} s; first "
         f"differences from the solo runs paged "
         f"{first_difference(toks, solo)}, contiguous "
         f"{first_difference(sampled['contiguous']['tokens'], solo)}; "
@@ -2725,6 +3043,11 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
             f"{sampled[k]['peak_gb']:.2f} on {smi}")
     if failed:
         raise AssertionError(f"xlstm {mode}: {failed}")
+    if mode == "pum":           # speculative decoding: mLSTM and sLSTM rows
+        spec = spec_check("xlstm-350m", paged, runs["paged"]["requests"],
+                          greedy, smi)
+        for k, v in spec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     backend_parity(paged)
     xlstm_measure(paged, contig, smi)
     cfg, params = paged.cfg, paged.params
@@ -3460,7 +3783,7 @@ def check_moe_kernels(dev, gpu_name: str) -> dict[str, list[dict]]:
     chunk's M = 16), K3 at both head layouts, K3's duplicate-trash
     store.  Returns their rows of the kernels line."""
     mvm = mvm_sweep(dev, OLMOE_MVM, OLMOE_LAYERS, "OLMoE-1B-7B",
-                    sorted(STEP_ROWS))
+                    [4, 16])
     attn = check_attention(dev, gpu_name, layouts=MOE_HEADS)
     check_trash_store(dev)
     return {"bitslice_mvm_scaled": [c["K1"] for c in mvm],
@@ -3503,7 +3826,7 @@ def check_hybrid_kernels(dev, gpu_name: str) -> dict[str, list[dict]]:
     projection shapes (a decode step's M = 4 and a chunk's M = 16), K3 at
     KV = 8, G = 4, hd = 128.  Returns their rows of the kernels line."""
     mvm = mvm_sweep(dev, JAMBA_MVM, JAMBA_LAYERS, "Jamba-v0.1 (one period)",
-                    sorted(STEP_ROWS))
+                    [4, 16])
     attn = check_attention(dev, gpu_name, layouts=[JAMBA_HEADS])
     return {"bitslice_mvm_scaled": [c["K1"] for c in mvm],
             "bitslice_mvm": [c["K2"] for c in mvm],
@@ -3746,6 +4069,9 @@ def dense_ffn_run(smi: str) -> dict[str, int]:
     paged = ContinuousBatchingScheduler(cfg, params, kv_block_size=16,
                                         chunked_prefill=True, **geometry)
     paged_t = tokens_of(paged.run(reqs))
+    # speculative decoding: blocks, Mamba's h and conv rows
+    spec = spec_check("jamba-v0.1 period, dense FFNs", paged, reqs, paged_t,
+                      smi)["launches"]
     del paged
     gc.collect()
     plain = ContinuousBatchingScheduler(cfg, params, kv_block_size=16,
@@ -3758,6 +4084,8 @@ def dense_ffn_run(smi: str) -> dict[str, int]:
     # the prefix cache: shared KV blocks and Mamba snapshots together
     launches = prefix_check("jamba-v0.1 period, dense FFNs", "hybrid", cfg,
                             params, smi)
+    for k, v in spec.items():
+        launches[k] = launches.get(k, 0) + v
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3907,6 +4235,9 @@ def main(argv=None) -> int:
     for name, cases in xlstm_rows(check_xlstm_mvm(dev)).items():
         rows[name]["xlstm_shapes"] = cases
     rows["paged_attention"] = attention_row(check_attention(dev, gpu_name))
+    rows["paged_attention"]["verify_shape"] = check_attention(
+        dev, gpu_name, cases=[(SPEC_K + 1, 81)])[0]
+    check_row_invariance(dev, smi)
     check_shared_cols(dev)
     for name, cases in check_moe_kernels(dev, gpu_name).items():
         rows[name]["moe_shapes"] = cases

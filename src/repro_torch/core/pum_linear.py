@@ -3,7 +3,8 @@
 Every linear layer routes through :func:`pum_linear`, which executes in
 one of three modes (``PUMConfig.mode``):
 
-  bf16 — plain dense matmul (``torch.matmul``).
+  bf16 — plain dense matmul (``torch.matmul``; inside
+         :func:`positionwise`, one position at a time).
   int8 — symmetric int8 x int8 -> int32 matmul: the single-plane
          special case of bit-slicing.
   pum  — bit-sliced execution over differential planes, per-plane
@@ -31,6 +32,9 @@ path does.  Both give the same int32 accumulator bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 from repro_torch.config import PUMConfig
@@ -54,8 +58,48 @@ def _quantize_act(x: torch.Tensor, bits: int
                                        axis=x.ndim - 1)
 
 
+_POSITIONWISE = contextvars.ContextVar("positionwise", default=False)
+
+
+@contextlib.contextmanager
+def positionwise():
+    """Within it, :func:`by_position` runs a [B, S, ...] input one
+    position at a time, each the [B, 1, ...] call a one-token step makes.
+    A float GEMM's or reduction's summation order may depend on its row
+    count (cuBLAS and PyTorch's reduction kernels on the card, MKL on
+    the CPU), so a row could round otherwise at B (k + 1) rows than at
+    B; the speculative verify step runs in it
+    (``serve.engine.make_verify_step``), so that each position's logits
+    are the one-token step's bit for bit.  Its float products
+    (:func:`float_matmul`) and the norms' statistics
+    (``models.layers.rmsnorm``, ``layernorm``) go through
+    :func:`by_position`; the integer products (``int8``,
+    ``pum``) are exact at any row count and ignore it."""
+    token = _POSITIONWISE.set(True)
+    try:
+        yield
+    finally:
+        _POSITIONWISE.reset(token)
+
+
+def by_position(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x); inside :func:`positionwise`, a [B, S, ...] x position by
+    position."""
+    if _POSITIONWISE.get() and x.ndim >= 3 and x.shape[1] > 1:
+        # each position's rows copied out, laid out as a one-token
+        # step's: a kernel may also pick its path by the row stride
+        return torch.cat([fn(x[:, j:j + 1].contiguous())
+                          for j in range(x.shape[1])], dim=1)
+    return fn(x)
+
+
+def float_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w; inside :func:`positionwise`, position by position."""
+    return by_position(lambda t: torch.matmul(t, w), x)
+
+
 def _matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, w.to(x.dtype))
+    return float_matmul(x, w.to(x.dtype))
 
 
 def _matmul_int8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,13 @@ between requests (paged only) and prints its counters on a
 prompt of the trace with one common prefix of N tokens (a prompt no
 longer than N is a slice of it), the traffic the cache serves.
 
+``--speculate-k K`` drafts K tokens a slot a step (n-gram
+prompt-lookahead self-speculation) and verifies them in one step; the
+tokens are those of ``--speculate-k 0`` in every ``--pum-mode`` (an MoE
+model's excepted: its drafts share the expert capacity), and a
+``speculative: {json}`` line prints the acceptance counters (paged
+only).
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through
@@ -107,6 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="give every request of the trace this many "
                          "common leading prompt tokens (0: fully random "
                          "prompts)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="speculative decoding: draft this many tokens "
+                         "a slot a step (n-gram prompt-lookahead "
+                         "self-speculation) and verify them in one "
+                         "batched forward; the output stays that of "
+                         "--speculate-k 0 in every --pum-mode (MoE "
+                         "models excepted); requires --kv-block-size")
     ap.add_argument("--kernel-backend", default="auto",
                     choices=["auto", "cuda", "torch"],
                     help="auto: the CUDA kernels on the card, the plain "
@@ -143,7 +157,7 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
         cfg, params, num_slots=args.batch_slots, max_len=max_len,
         kv_block_size=args.kv_block_size, num_kv_blocks=args.num_kv_blocks,
         chunked_prefill=args.chunked_prefill,
-        prefix_cache=args.prefix_cache,
+        prefix_cache=args.prefix_cache, speculate_k=args.speculate_k,
         kernel_backend=None if args.kernel_backend == "auto"
         else args.kernel_backend, device=dev)
     del params
@@ -189,10 +203,12 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     stats = sched.prefix_stats()
     if args.prefix_cache:
         print("prefix-cache:", json.dumps(stats))
+    if args.speculate_k > 0:
+        print("speculative:", json.dumps(sched.spec_stats()))
     return {"scheduler": sched, "requests": reqs, "completions": out,
             "tokens": toks, "wall_s": wall_s, "decode_ms": decode_ms,
             "setup_s": setup_s, "graphs": graphs, "build_s": build_s,
-            "prefix_stats": stats}
+            "prefix_stats": stats, "spec_stats": sched.spec_stats()}
 
 
 def static_batch(cfg, params, args, dev: torch.device, max_len: int) -> dict:

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, PUMConfig
-from repro_torch.core.pum_linear import pum_linear
+from repro_torch.core.pum_linear import by_position, pum_linear
 
 Params = dict[str, Any]
 
@@ -49,9 +49,16 @@ def make_norm(cfg: ModelConfig, device: torch.device | str = "cpu"
         else layernorm_init(cfg.d_model, device)
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the last axis; position by position under
+    ``pum_linear.positionwise``, as the norms' statistics go there (a
+    reduction kernel may sum a row otherwise at another row count)."""
+    return by_position(lambda t: torch.mean(t, dim=-1, keepdim=True), x)
+
+
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    var = _mean(x32 * x32)
     out = x32 * torch.rsqrt(var + eps)
     return (out * p["scale"].to(torch.float32)).to(x.dtype)
 
@@ -59,8 +66,9 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5
               ) -> torch.Tensor:
     x32 = x.to(torch.float32)
-    mu = torch.mean(x32, dim=-1, keepdim=True)
-    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    mu = _mean(x32)
+    var = by_position(lambda t: torch.var(t, dim=-1, keepdim=True,
+                                          unbiased=False), x32)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     out = out * p["scale"]
     if "bias" in p:

@@ -16,7 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core import prepack
+from repro_torch.core import prepack, pum_linear
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, transformer
 
@@ -116,7 +116,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             block_table: torch.Tensor | None = None,
             kv_len: int | None = None,
             write_table: torch.Tensor | None = None,
-            commit: bool = True,
+            commit: bool = True, collect_states: bool = False,
             ) -> tuple[torch.Tensor, list[Params] | None]:
     """tokens: [B, S] int -> (logits [B, S or 1, V_padded] f32, states).
 
@@ -127,7 +127,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     storage is written in place; recurrent states too, unless
     ``commit=False``, which leaves them as they were and returns their
     successors in the returned list (the paged slot step keeps the rows
-    of slots that are not decoding: ``serve.kv_pool``)."""
+    of slots that are not decoding: ``serve.kv_pool``).
+    ``collect_states`` (the speculative verify step's, with states):
+    every recurrent leaf of the returned list gains a position axis,
+    [B, S, ...], index j the state after position j, bit for bit what
+    j + 1 one-token steps leave; it writes no recurrent state (it
+    implies ``commit=False``), while KV storage is written as ever.
+    The f32 lm head is a :func:`~repro_torch.core.pum_linear.float_matmul`
+    (position by position under ``pum_linear.positionwise``)."""
     b, s = tokens.shape
     dev = tokens.device
     h = params["embed"][tokens].to(
@@ -147,7 +154,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         h, st = transformer.apply_block(
             blk, h, cfg, j, positions=positions, state=st,
             cache_index=cache_index, block_table=block_table,
-            kv_len=kv_len, write_table=write_table, commit=commit)
+            kv_len=kv_len, write_table=write_table, commit=commit,
+            collect_states=collect_states)
         if out_states is not None:
             out_states.append(st)
 
@@ -157,5 +165,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = torch.matmul(h.to(torch.float32), head.to(torch.float32))
+    logits = pum_linear.float_matmul(h.to(torch.float32),
+                                     head.to(torch.float32))
     return logits, out_states

@@ -28,8 +28,12 @@ block writes it into the layer's state tensors in place
 (``transformer.commit_state``), since captured graphs hold their
 addresses.
 
-Not ported: ``collect_states`` (the per-position states of the
-speculative verify step, which the port does not serve yet).
+``collect_states`` (the speculative verify step's): with a state, both
+leaves gain a position axis, index t the state a t + 1-token run of
+one-token steps would carry, bit for bit by construction: ``h`` after
+token t from the same per-token loop, and the conv window rows t + 1 ..
+t + W - 1 of the extended window, which is what the one-token steps
+roll it to.
 """
 from __future__ import annotations
 
@@ -128,19 +132,24 @@ def _ssm_step(h, xt, dtt, btt, ctt, a, d_skip):
     return h, y
 
 
-def _recurrence(h, xc, dt, b_t, c_t, a, d_skip):
+def _recurrence(h, xc, dt, b_t, c_t, a, d_skip, collect: bool = False):
     """:func:`_ssm_step` over the S tokens of [B, S, ...] inputs from
-    ``h``: (the last h, y [B, S, inner])."""
-    ys = []
+    ``h``: (the last h, or with ``collect`` every token's [B, S, inner,
+    st]; y [B, S, inner])."""
+    ys, hs = [], []
     for t in range(xc.shape[1]):
         h, y = _ssm_step(h, xc[:, t], dt[:, t], b_t[:, t], c_t[:, t], a,
                          d_skip)
         ys.append(y)
+        if collect:
+            hs.append(h)
+    if collect:
+        h = torch.stack(hs, dim=1)
     return h, torch.stack(ys, dim=1)
 
 
 def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-          state: Params | None = None,
+          state: Params | None = None, collect_states: bool = False,
           ) -> tuple[torch.Tensor, Params | None]:
     """x: [B, S, D] -> (y [B, S, D], new state or None).
 
@@ -150,7 +159,9 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     one-token decode, which is that prefill at S = 1, so the two agree
     bit for bit by construction.  The conv window is f32, and the new
     inputs are cast into it, so the conv, dt, h and y are f32; y is
-    rounded to the activation dtype before the output gate."""
+    rounded to the activation dtype before the output gate.
+    ``collect_states`` (needs ``state``): the state after every token,
+    ``h`` [B, S, inner, st] and ``conv`` [B, S, W-1, inner]."""
     b = x.shape[0]
     inner = _inner(cfg)
     win = cfg.ssm_conv_width - 1
@@ -169,8 +180,13 @@ def mamba(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         new_state = None
     else:
         h, y = _recurrence(state["h"].to(torch.float32), xc, dt, b_t, c_t,
-                           a, p["d_skip"])
-        new_state = {"h": h, "conv": ext[:, ext.shape[1] - win:]}
+                           a, p["d_skip"], collect=collect_states)
+        if collect_states:
+            conv = torch.stack([ext[:, t + 1:t + 1 + win]
+                                for t in range(x.shape[1])], dim=1)
+        else:
+            conv = ext[:, ext.shape[1] - win:]
+        new_state = {"h": h, "conv": conv}
     y = y.to(x.dtype) * F.silu(z)
     return layers.linear(p["out_proj"], y, cfg.pum), new_state
 

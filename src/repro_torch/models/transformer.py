@@ -135,12 +135,16 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 block_table: torch.Tensor | None = None,
                 kv_len: int | None = None,
                 write_table: torch.Tensor | None = None,
-                commit: bool = True,
+                commit: bool = True, collect_states: bool = False,
                 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (x, state).  A KV cache in ``state`` is updated in place;
     a recurrent state is written in place too (``commit``), or left as
-    it was and its successor returned (``commit=False``).  An MoE FFN's
-    aux losses are not computed (serving needs none)."""
+    it was and its successor returned (``commit=False``).
+    ``collect_states`` (the speculative verify step's) returns a
+    recurrent mixer's state after every position ([B, S, ...] leaves)
+    and writes none of it: it implies ``commit=False``; KV caches are
+    written as ever, and the step rolls back what it rejects.  An MoE
+    FFN's aux losses are not computed (serving needs none)."""
     mk, _ = layer_kinds(cfg, layer_idx)
     h = layers.norm_apply(p["norm1"], x, cfg)
     if mk == "attn":
@@ -149,8 +153,9 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
             cache_index=cache_index, block_table=block_table, kv_len=kv_len,
             write_table=write_table)
     else:
-        h, new = _MIXERS[mk](p[mk], h, cfg, state=state)
-        if new is not None and commit:
+        h, new = _MIXERS[mk](p[mk], h, cfg, state=state,
+                             collect_states=collect_states)
+        if new is not None and commit and not collect_states:
             commit_state(state, new)
         elif new is not None:
             state = new

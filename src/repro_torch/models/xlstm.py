@@ -24,8 +24,10 @@ shape, and with it its summation order, from the batch).  The
 scheduler's oracle contract rests on this: a request decoded beside
 others gives its solo tokens.
 
-Not ported: ``collect_states`` (the per-position states of the
-speculative verify step).
+``collect_states`` (the speculative verify step's): with a state, every
+leaf of the returned state gains a position axis, [B, S, ...], index t
+the state after token t.  The tokens run through the same per-token
+loop either way, so index t equals t + 1 one-token steps bit for bit.
 """
 from __future__ import annotations
 
@@ -93,12 +95,20 @@ def _mlstm_step(carry, q, k, v, i_pre, f_pre):
     return (c1, n1, m1), h
 
 
+def _stack_carries(carries) -> Params:
+    """The (c, n, m) carry after each token -> leaves [B, S, ...]."""
+    return {name: torch.stack([c[i] for c in carries], dim=1)
+            for i, name in enumerate("cnm")}
+
+
 def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-          state: Params | None = None,
+          state: Params | None = None, collect_states: bool = False,
           ) -> tuple[torch.Tensor, Params | None]:
     """x: [B, S, D] -> (y [B, S, D], new state or None).  Without a
     state, the chunked parallel form; with one, the recurrence token by
-    token (a decode step is its one-token case)."""
+    token (a decode step is its one-token case).  ``collect_states``
+    (needs ``state``): the state after every token, [B, S, ...] a
+    leaf."""
     b, s, _ = x.shape
     inner, heads, hd = _dims(cfg)
     qkv = layers.linear(p["wqkv"], x, cfg.pum)
@@ -116,13 +126,16 @@ def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         carry = tuple(state[n].to(torch.float32) for n in "cnm")
         qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
-        hs = []
+        hs, carries = [], []
         for t in range(s):
             carry, h = _mlstm_step(carry, qf[:, t], kf[:, t], vf[:, t],
                                    i_pre[:, t], f_pre[:, t])
             hs.append(h)
+            if collect_states:
+                carries.append(carry)
         y = torch.stack(hs, dim=1).to(x.dtype)
-        new_state = dict(zip("cnm", carry))
+        new_state = _stack_carries(carries) if collect_states \
+            else dict(zip("cnm", carry))
 
     y = (y.reshape(b, s, inner) * o_gate).to(x.dtype)
     return layers.linear(p["out_proj"], y, cfg.pum), new_state
@@ -219,10 +232,11 @@ def _slstm_step(carry, gates):
 
 
 def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-          state: Params | None = None,
+          state: Params | None = None, collect_states: bool = False,
           ) -> tuple[torch.Tensor, Params | None]:
     """x: [B, S, D] -> (y, new state or None): the recurrence token by
-    token, from a fresh state when none is given."""
+    token, from a fresh state when none is given.  ``collect_states``:
+    as in :func:`mlstm`."""
     b, s, _ = x.shape
     inner, _, _ = _dims(cfg)
     z = layers.linear(p["wz"], x, cfg.pum).to(torch.float32)
@@ -235,11 +249,18 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         carry = tuple(make_slstm_state(cfg, b, x.device).values())
     else:
         carry = tuple(state[n].to(torch.float32) for n in "cnm")
-    hs = []
+    hs, carries = [], []
     for t in range(s):
         carry, h = _slstm_step(carry, (z[:, t], i_pre[:, t], logf[:, t],
                                        o[:, t]))
         hs.append(h)
+        if collect_states:
+            carries.append(carry)
     y = torch.stack(hs, dim=1).to(x.dtype)
-    new_state = None if state is None else dict(zip("cnm", carry))
+    if state is None:
+        new_state = None
+    elif collect_states:
+        new_state = _stack_carries(carries)
+    else:
+        new_state = dict(zip("cnm", carry))
     return layers.linear(p["out_proj"], y, cfg.pum), new_state

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import pum_linear
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry
 from repro_torch.models import lm
@@ -61,6 +62,36 @@ def make_decode_step(cfg: ModelConfig, kv_len: int | None = None):
                           write_table=write_table, commit=commit)
 
     return decode_step
+
+
+def make_verify_step(cfg: ModelConfig, kv_len: int | None = None):
+    """(params, states, tokens [B,S], cache_index [B], block_table=None,
+    write_table=None) -> (logits [B,S,V], states').
+
+    The speculative verify forward: it scores all S = k + 1 positions
+    (the current token and k drafts) in one pass.  Unlike
+    :func:`make_decode_step` it keeps every position's logits, and it
+    runs with ``collect_states=True``, so the recurrent leaves come back
+    per position ([B, S, ...]) and none is written: the caller adopts
+    each row's state at its accepted depth
+    (``kv_pool.spec_select_recurrent``) and rolls back the pool cells of
+    the rejected suffix (``kv_pool.spec_restore_cells``).  Its norms
+    and float products (the f32 lm head, ``bf16`` mode's projections)
+    run position by position (``pum_linear.positionwise``), each on the
+    decode step's rows, so that a position's logits are the one-token
+    step's bit for bit; the integer projections (``pum``, ``int8``), the
+    recurrences (``layers.lane_sum``) and the paged attention already
+    give a row the same bits whatever the rows beside it."""
+
+    def verify_step(params, states, tokens, cache_index, *,
+                    block_table=None, write_table=None):
+        with pum_linear.positionwise():
+            return lm.forward(params, tokens, cfg, states=states,
+                              cache_index=cache_index, last_only=False,
+                              block_table=block_table, kv_len=kv_len,
+                              write_table=write_table, collect_states=True)
+
+    return verify_step
 
 
 def sample_token(logits: torch.Tensor, key: torch.Tensor | None = None,

@@ -22,6 +22,13 @@ its tokens touch, mapped through a per-slot *block table*.
   sends the shared columns to the trash block, and a fully cached
   prompt copies its last block (:func:`copy_block`) before it re-runs
   its last token there (copy-on-write).
+* Speculative decoding writes the K/V of k + 1 positions a row and
+  keeps only the accepted ones: :func:`spec_save_cells` gathers the
+  cells before the verify forward stores into them and
+  :func:`spec_restore_cells` scatters the rejected ones back, so the
+  pool's net change is a one-token-a-step replay's;
+  :func:`spec_select_recurrent` adopts each recurrent row's state at its
+  accepted depth.
 
 Recurrent layers (mLSTM, sLSTM, Mamba) keep per-slot rows beside the
 pools (``lm.init_paged_state``; a hybrid stack holds both in one state
@@ -42,6 +49,8 @@ from typing import Any
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.paged_attention.ref import (paged_write_cells,
+                                                     write_cells)
 from repro_torch.models import transformer
 
 TRASH_BLOCK = 0
@@ -479,3 +488,76 @@ def restore_slot_recurrent(states: list[Any], snap: list[Any],
                 row = torch.full((1,), slot, dtype=torch.int64,
                                  device=t.device)
                 t.index_copy_(0, row, sn[k].to(t.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: cell-wise KV rollback, per-position recurrent rows
+# ---------------------------------------------------------------------------
+
+def spec_save_cells(states: list[Any], write_table: torch.Tensor,
+                    cache_index: torch.Tensor, s: int) -> list[Any]:
+    """Gather the pool cells a speculative verify step is about to
+    overwrite: each row's next ``s`` positions through ``write_table``
+    (past the table width, the trash block).  One entry a layer: None
+    for a recurrent layer, a ``{"k_pool", "v_pool"}`` dict of [B, S, KV,
+    hd] copies for a paged one.  The pools are written in place (by the
+    kernel or :func:`write_cells`), so the gather must run before the
+    verify forward; with :func:`spec_restore_cells` the draft writes are
+    transactional."""
+    cells = None
+    saved = []
+    for st in states:
+        if not is_paged_cache(st):
+            saved.append(None)
+            continue
+        if cells is None:
+            cells = paged_write_cells(write_table, cache_index, s,
+                                      st["k_pool"].shape[1])
+        phys, off = cells
+        saved.append({name: st[name][phys, off]
+                      for name in ("k_pool", "v_pool")})
+    return saved
+
+
+def spec_restore_cells(states: list[Any], saved: list[Any],
+                       write_table: torch.Tensor, cache_index: torch.Tensor,
+                       s: int, advance: torch.Tensor) -> None:
+    """Roll back the rejected suffix of a verify step's pool writes, in
+    place: of each row's ``s`` probed cells the first ``advance[b]`` are
+    committed (kept), the rest get their :func:`spec_save_cells` values
+    back.  A committed cell's (redundant) restore goes to the trash
+    block, as an inactive row's writes do; where several land in one
+    trash cell the last (row, position) wins (:func:`write_cells`), as
+    the reference's scatter leaves it on the CPU."""
+    rel = torch.arange(s, dtype=advance.dtype, device=advance.device)
+    committed = rel[None, :] < advance[:, None]
+    cells = None
+    for st, sv in zip(states, saved):
+        if sv is None:
+            continue
+        if cells is None:
+            phys, off = paged_write_cells(write_table, cache_index, s,
+                                          st["k_pool"].shape[1])
+            cells = torch.where(committed, TRASH_BLOCK, phys), off
+        for name in ("k_pool", "v_pool"):
+            write_cells(st[name], *cells, sv[name])
+
+
+def spec_select_recurrent(states: list[Any], new_states: list[Any],
+                          advance: torch.Tensor,
+                          active: torch.Tensor) -> None:
+    """Collapse a verify step's per-position recurrent states to each
+    row's accepted depth, in place.  ``new_states``' recurrent leaves
+    come from a ``collect_states`` forward, [B, S, ...], index j the
+    state after position j; a row that advances by ``advance[b]`` tokens
+    has consumed positions 0 .. advance - 1 and adopts index ``advance -
+    1``.  Rows not in ``active`` keep their values, as
+    :func:`freeze_inactive_rows` keeps them.  Paged pools are
+    :func:`spec_restore_cells`' to roll back."""
+    idx = torch.clamp(advance.to(torch.int64) - 1, min=0)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for st, new in zip(states, new_states):
+        if _recurrent(st):
+            transformer.commit_state(
+                st, {name: n[rows, idx] for name, n in new.items()},
+                rows=active)

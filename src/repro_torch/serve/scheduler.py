@@ -110,15 +110,34 @@ copy-on-write tail runs one token where the chunk would run it among
 others, and every row's numerics are its own.  MoE is outside it: only
 the tail's tokens take expert capacity.
 
+Speculative decoding (``speculate_k > 0``, paged only) replaces the
+decode step with the draft-and-verify step (:func:`make_spec_step`): a
+drafter (``serve.spec``) proposes k tokens for every decoding slot on
+the host, one verify forward scores the k + 1 positions of every slot,
+and each slot emits the longest draft prefix that matches what it
+samples plus one bonus token, 1 to k + 1 tokens a step.  Each emitted
+token is drawn from the logits of its own position with the key the
+one-token step would hold there, and a position is accepted only while
+the drafts before it matched, so the tokens are the one-token path's
+whatever the drafter proposes; the pool cells of the rejected
+positions are restored (``kv_pool.spec_restore_cells``) and the
+recurrent rows take the state at the accepted depth
+(``kv_pool.spec_select_recurrent``), so the pool and the rows are a
+one-token run's too.  The guarantee carries over wherever the verify
+step runs a row's arithmetic as the decode step does: the integer
+projections (``pum``, ``int8``) are exact, and the norms and float
+products (the f32 lm head, ``bf16`` mode's projections) run position by
+position (``pum_linear.positionwise``); MoE stays outside it (the k + 1
+positions of every row share the expert capacity).
+
 This slice serves the dense family, the xLSTM family (mLSTM and sLSTM
 mixers), the MoE family and the hybrid family (Mamba and attention
 mixers, dense and routed FFNs) at any temperature, each request with
 its own seed, and its draws are the reference's (``serve.prng``
-reproduces its threefry keys), with or without the prefix cache.
-Speculative decoding, tensor parallelism and the fault-injection hooks
-of the JAX package are not ported yet; their arguments raise
-``NotImplementedError`` (or, with the contiguous layout, the
-reference's ``ValueError``); ``cancel`` and ``drain`` are.
+reproduces its threefry keys), with or without the prefix cache and
+speculative decoding.  Tensor parallelism and the fault-injection hooks
+of the JAX package are not ported yet; ``mesh`` raises
+``NotImplementedError``; ``cancel`` and ``drain`` are ported.
 """
 from __future__ import annotations
 
@@ -132,10 +151,11 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import lm
-from repro_torch.serve import kv_pool, prng
+from repro_torch.serve import kv_pool, prng, spec
 from repro_torch.serve.compiled import CompiledStep
 from repro_torch.serve.engine import (RequestTooLarge, ServeEngine,
-                                      make_decode_step, sample_token)
+                                      make_decode_step, make_verify_step,
+                                      sample_token)
 
 
 class InvalidRequest(ValueError):
@@ -276,6 +296,100 @@ def make_slot_step(cfg: ModelConfig, kv_len: int | None = None):
     return slot_step
 
 
+def make_spec_step(cfg: ModelConfig, k: int, kv_len: int):
+    """The draft-and-verify step (paged only).
+
+    (params, states, cur_tok [B,1], draft [B,k], cache_index [B],
+     keys [B,2], active [B] bool, temp [B] f32, eos [B], gen [B],
+     max_toks [B], block_table [B,W], shared_cols [B])
+      -> (states, emitted [B,k+1], advance [B], cache_index', keys',
+          active', gen', done [B])
+
+    One verify forward scores the k + 1 positions of every row (its
+    current token and its k drafts); each row then emits the longest
+    draft prefix that matches what it samples, plus one bonus token, so
+    an active row advances by ``advance`` in [1, k + 1] tokens a step,
+    and its tokens are the one-token step's whatever the drafts:
+
+    * token j is sampled from the logits at position j with the j-th
+      key of the one-token chain (``fold_in`` with ``gen - 1 + j``,
+      ``generate_loop``'s schedule), so greedy and sampled rows emit
+      the oracle's token at every accepted position;
+    * a position is accepted only while the drafts before it matched the
+      emitted tokens, so it attended to the right K/V only;
+    * the K/V of the rejected positions are rolled back cell by cell
+      (``kv_pool.spec_save_cells`` before the forward,
+      ``spec_restore_cells`` after), so the pool's net change is a
+      one-token run's;
+    * the recurrent rows take the state at position ``advance - 1`` of
+      the forward's per-position states (``collect_states``), which is
+      bit for bit the one-token steps' state; rows not decoding keep
+      theirs.
+
+    The advance stops at the first EOS (inclusive) and at the request's
+    ``max_tokens``, as the one-token step stops a row.  Positions past
+    the table width write to the trash block, on the kernel as on its
+    plain version, so the verify forward runs the paged-attention
+    kernel on the card; the reference pins its verify step to the XLA
+    composition for want of that routing in its Pallas kernel.  The
+    recurrent rows are advanced in place: a compiled spec step names
+    them (``CompiledStep(advances=)``); the rollback makes its pool
+    writes idempotent."""
+    verify = make_verify_step(cfg, kv_len=kv_len)
+    s = k + 1
+
+    def spec_step(params, states, cur_tok, draft, cache_index, keys,
+                  active, temp, eos, gen, max_toks, block_table,
+                  shared_cols):
+        # the solo chain's keys for the next k + 1 tokens: token gen + j
+        # is drawn after fold_in(..., gen - 1 + j) of the request's key
+        # folded through every earlier step
+        chain, kk = [], keys
+        for j in range(s):
+            kk = prng.fold_in(kk, gen - 1 + j)
+            chain.append(kk)
+        chain = torch.stack(chain, dim=1)                   # [B, k+1, 2]
+        block_table = _mask_block_table(block_table, active)
+        write_table = kv_pool.mask_shared_cols(block_table, shared_cols)
+        tokens = torch.cat([cur_tok, draft], dim=1)         # [B, k+1]
+        saved = kv_pool.spec_save_cells(states, write_table, cache_index,
+                                        s)
+        logits, new_states = verify(params, states, tokens, cache_index,
+                                    block_table=block_table,
+                                    write_table=write_table)
+        emitted = torch.stack(
+            [sample_token(logits[:, j:j + 1], chain[:, j], temp)[:, 0]
+             for j in range(s)], dim=1)                     # [B, k+1]
+        # the longest matching draft prefix, then the caps
+        match = (emitted[:, :k] == draft).to(torch.int32)
+        m_raw = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32) \
+            + 1
+        valid = torch.arange(s, device=gen.device)[None, :] < m_raw[:, None]
+        is_eos = (emitted == eos[:, None]) & valid
+        any_eos = is_eos.any(dim=1)
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1).to(
+            torch.int32)
+        eos_cap = torch.where(any_eos, first_eos + 1, s)
+        len_cap = torch.clamp(max_toks - gen, min=1)        # >= 1 token
+        adv = torch.where(active, torch.minimum(torch.minimum(
+            m_raw, eos_cap), len_cap), 0).to(cache_index.dtype)
+        kv_pool.spec_restore_cells(states, saved, write_table, cache_index,
+                                   s, adv)
+        kv_pool.spec_select_recurrent(states, new_states, adv, active)
+        gen = gen + adv
+        done = active & ((any_eos & (adv == first_eos + 1))
+                         | (gen >= max_toks))
+        # the key the solo loop holds after the last emitted token (a row
+        # not decoding churns to the chain's first, as the decode step's)
+        rows = torch.arange(keys.shape[0], device=keys.device)
+        keys = chain[rows, torch.clamp(adv - 1, min=0).to(torch.int64)]
+        cache_index = cache_index + adv
+        active = active & ~done
+        return states, emitted, adv, cache_index, keys, active, gen, done
+
+    return spec_step
+
+
 class ContinuousBatchingScheduler:
     """Continuous batching over a fixed pool of decode slots, serving
     requests at any temperature: each slot carries its request's key and
@@ -302,6 +416,15 @@ class ContinuousBatchingScheduler:
     cached dense prompt copies its last block into a private one and
     re-runs its last token there.  The snapshots, those of prefills in
     flight included, hold at most :func:`snapshot_budget` bytes.
+
+    ``speculate_k > 0`` (paged only, up to 16) runs every decode
+    dispatch as the draft-and-verify step (:func:`make_spec_step`):
+    ``drafter`` (``"ngram"``, prompt-lookahead self-speculation, or any
+    object with ``propose(context, k)``, such as
+    :class:`~repro_torch.serve.spec.ModelDrafter`) proposes k tokens for
+    every decoding slot, and each slot advances by 1 to k + 1 tokens a
+    step, its tokens the one-token path's whatever the drafter;
+    :meth:`spec_stats` counts the acceptance.
     """
 
     def __init__(self, cfg: ModelConfig, params, num_slots: int = 4,
@@ -310,7 +433,8 @@ class ContinuousBatchingScheduler:
                  chunked_prefill: bool = False, kernel_backend=None,
                  device: str | torch.device = "cuda",
                  prefix_cache: bool = False,
-                 speculate_k: int = 0, mesh=None, cuda_graphs: bool = True):
+                 speculate_k: int = 0, drafter="ngram", mesh=None,
+                 cuda_graphs: bool = True):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if chunked_prefill and kv_block_size <= 0:
@@ -321,15 +445,18 @@ class ContinuousBatchingScheduler:
             raise ValueError(
                 "prefix_cache shares paged pool blocks between requests; "
                 "set kv_block_size > 0 to enable it")
+        if not 0 <= speculate_k <= 16:
+            raise ValueError(
+                f"speculate_k={speculate_k} out of range: the draft "
+                f"depth must be 0 (off) .. 16")
         if speculate_k > 0 and kv_block_size <= 0:
             raise ValueError(
                 "speculative decoding rolls rejected draft KV writes "
                 "back through the paged pool; set kv_block_size > 0 to "
                 "enable it")
-        if speculate_k or mesh is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "speculative decoding and tensor-parallel serving are not "
-                "ported yet")
+                "tensor-parallel serving is not ported yet")
         self.engine = ServeEngine(cfg, params, max_len=max_len,
                                   prepack=prepack,
                                   kernel_backend=kernel_backend,
@@ -372,8 +499,19 @@ class ContinuousBatchingScheduler:
             self._one = lm.init_state(cfg, 1, max_len, device=self.device)
         self._step = make_slot_step(cfg,
                                     kv_len=max_len if self.paged else None)
+        self.speculate_k = speculate_k
+        if self.speculate_k > 0:
+            self._drafter = spec.resolve_drafter(drafter)
+            self._spec_step = make_spec_step(cfg, self.speculate_k,
+                                             kv_len=max_len)
+        # lifetime speculative-decoding counters (all zero at k = 0):
+        # spec dispatches, active rows in them, drafts proposed and
+        # accepted, tokens emitted
+        self._spec_steps = self._spec_rows = 0
+        self._spec_proposed = self._spec_accepted = self._spec_emitted = 0
         self.cuda_graphs = self.engine.cuda_graphs
-        # "decode", or a chunk or prompt length -> its step, built once
+        # "decode", "spec", or a chunk or prompt length -> its step, built
+        # once
         # (lifetime: a reset keeps them)
         self._programs: dict[str | int, CompiledStep] = {}
         self._reset()
@@ -677,16 +815,25 @@ class ContinuousBatchingScheduler:
     # -- the steps ---------------------------------------------------------
 
     def program(self, key: str | int, *values) -> CompiledStep:
-        """The compiled step of ``key`` ("decode", or a chunk or prompt
-        length), built at its first use and warmed up on ``values``, its
-        first call's inputs.  A contiguous step writes the rows its
-        inputs name, so it is built on real inputs: zeros would write
-        position 0 of every row."""
+        """The compiled step of ``key`` ("decode", "spec", or a chunk or
+        prompt length), built at its first use and warmed up on
+        ``values``, its first call's inputs.  A contiguous step writes
+        the rows its inputs name, so it is built on real inputs: zeros
+        would write position 0 of every row.  The spec step is warmed up
+        on zeros instead, a step in which no row decodes: every cell it
+        probes is the trash block's and is restored, and no recurrent
+        row moves, so the warm-up leaves everything as it was.  On real
+        inputs it would not: run twice, the restore of the cells a row
+        keeps (sent to the trash block) writes what the first run left
+        there, so the trash block would differ from one call's."""
         prog = self._programs.get(key)
         if prog is None:
             advances = lm.recurrent_tensors(self.cfg, self.states)
             if key == "decode":
                 fn, shapes = self._decode_fn()
+            elif key == "spec":
+                fn, shapes = self._spec_fn()
+                values = ()
             elif self.paged:
                 fn, shapes = self._chunk_fn(key)
             else:
@@ -730,6 +877,29 @@ class ContinuousBatchingScheduler:
         tables = [(b, self.table_width), (b,)] if self.paged else []
         return decode, [(b, 1), (b,), (b, 2), (b,), (b,), (b,), (b,),
                         (b,)] + tables
+
+    def _spec_fn(self):
+        """The spec step over all slots: (cur_tok [B,1], draft [B,k],
+        cache_index, keys [B,2], active, temp (f32 bits), eos, gen,
+        max_toks [B], block_table [B,W], shared_cols [B]) -> (emitted
+        [k+1 rows], advance, cache_index', active', gen', done, and the
+        two words of the carried keys, packed as [k+8, B],)."""
+        params, states, step = self.params, self.states, self._spec_step
+        b, k = self.num_slots, self.speculate_k
+
+        def spec_step(cur_tok, draft, cache_index, keys, active, temp, eos,
+                      gen, max_toks, block_table, shared_cols):
+            with self.engine.backend_ctx():
+                _, emitted, adv, cache_index, keys, active, gen, done = step(
+                    params, states, cur_tok, draft, cache_index, keys,
+                    active != 0, temp.view(torch.float32), eos, gen,
+                    max_toks, block_table, shared_cols)
+            return (torch.cat([emitted.T, torch.stack(
+                [adv, cache_index, active.to(torch.int32), gen,
+                 done.to(torch.int32)]), keys.T]),)
+
+        return spec_step, [(b, 1), (b, k), (b,), (b, 2), (b,), (b,), (b,),
+                           (b,), (b,), (b, self.table_width), (b,)]
 
     def _prefill_fn(self, length: int):
         """A contiguous admission of a prompt of ``length`` tokens:
@@ -819,11 +989,32 @@ class ContinuousBatchingScheduler:
         reference's jit cache sizes, ``{"decode": 1, "chunk": {16: 1,
         4: 1}}`` after a paged run whose chunks were 16 and 4 tokens
         long, ``{"decode": 1, "prefill": {5: 1, 9: 1}}`` after a
-        contiguous run of prompts of 5 and 9 tokens."""
-        return {"decode": int("decode" in self._programs),
-                "chunk" if self.paged else "prefill": {
-                    k: 1 for k in sorted(k for k in self._programs
-                                         if k != "decode")}}
+        contiguous run of prompts of 5 and 9 tokens.  With speculative
+        decoding the spec step takes the decode step's place:
+        ``{"decode": 0, "spec": 1, "chunk": {...}}``."""
+        progs = {"decode": int("decode" in self._programs)}
+        if self.speculate_k > 0:
+            progs["spec"] = int("spec" in self._programs)
+        progs["chunk" if self.paged else "prefill"] = {
+            k: 1 for k in sorted(k for k in self._programs
+                                 if not isinstance(k, str))}
+        return progs
+
+    def spec_stats(self) -> dict[str, float]:
+        """Lifetime speculative-decoding counters (all zero at k = 0):
+        spec dispatches run, active rows in them, draft tokens proposed
+        and accepted, tokens emitted, the ``acceptance_rate`` (accepted
+        over proposed) and the ``advance_per_step`` (tokens emitted a
+        row a dispatch; above 1 speculation wins), the reference's."""
+        return {"steps": self._spec_steps,
+                "rows": self._spec_rows,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "emitted": self._spec_emitted,
+                "acceptance_rate": (self._spec_accepted
+                                    / max(1, self._spec_proposed)),
+                "advance_per_step": (self._spec_emitted
+                                     / max(1, self._spec_rows))}
 
     def graphs_captured(self) -> tuple[int, float]:
         """(CUDA graphs captured, seconds spent building them: warm-up
@@ -893,44 +1084,95 @@ class ContinuousBatchingScheduler:
             self._start_decode(slot, req, tok0, key, temp, len(pf.prompt))
         return dispatches
 
+    def _run_decode(self, key: str, *args) -> np.ndarray:
+        """One call of the decode or spec step, its host time counted."""
+        prog = self.program(key, *args)
+        t0 = time.perf_counter()
+        ints = prog(*args)
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_steps += 1
+        return ints
+
+    def _emit(self, slot: int, toks: Sequence[int], done: bool, step: int,
+              out: dict[int, Completion]) -> None:
+        """Stream ``slot``'s new tokens in order; retire it if done (its
+        last token is the decider: an EOS-capped advance ends on the
+        EOS)."""
+        req = self._slot_req[slot]
+        for tok in toks:
+            self._slot_toks[slot].append(tok)
+            self._events.append((req.rid, len(self._slot_toks[slot]) - 1,
+                                 tok))
+        if done:
+            reason = "eos" if toks[-1] == req.eos_id else "length"
+            out[req.rid] = Completion(
+                req.rid, [int(t) for t in req.prompt],
+                self._slot_toks[slot], reason,
+                int(self._slot_admitted[slot]), step)
+            self._retire(slot)
+
+    def _decode_one(self, step: int, out: dict[int, Completion],
+                    was_active: np.ndarray) -> None:
+        """One slot-wise decode step: a token for every decoding slot."""
+        ints = self._run_decode(
+            "decode", self._cur_tok, self._cache_index, self._keys,
+            self._active, self._temp.view(np.int32), self._eos, self._gen,
+            self._max_toks,
+            *((self._block_table, self._shared_cols) if self.paged else ()))
+        tok, self._cache_index, active, self._gen, done = ints[:5]
+        self._keys = ints[5:].T.copy()
+        self._cur_tok = tok[:, None].copy()
+        self._active = active.astype(bool)
+        for slot in np.nonzero(was_active)[0]:
+            self._emit(slot, [int(tok[slot])], bool(done[slot]), step, out)
+
+    def _decode_spec(self, step: int, out: dict[int, Completion],
+                     was_active: np.ndarray) -> None:
+        """One draft-and-verify step: draft k tokens for every decoding
+        slot on the host, run the spec step, then stream a variable
+        number of tokens a slot (``advance`` in [1, k + 1]), each one an
+        ordinary event, equal to the one-token path's."""
+        k = self.speculate_k
+        contexts: list[list[int] | None] = [None] * self.num_slots
+        for slot in np.nonzero(was_active)[0]:
+            contexts[slot] = ([int(t) for t in self._slot_req[slot].prompt]
+                              + self._slot_toks[slot])
+        drafts = spec.build_drafts(self._drafter, contexts, k,
+                                   self.cfg.vocab_size)
+        ints = self._run_decode(
+            "spec", self._cur_tok, drafts, self._cache_index, self._keys,
+            self._active, self._temp.view(np.int32), self._eos, self._gen,
+            self._max_toks, self._block_table, self._shared_cols)
+        emitted = ints[:k + 1].T
+        adv, self._cache_index, active, self._gen, done = ints[k + 1:k + 6]
+        self._keys = ints[k + 6:].T.copy()
+        self._active = active.astype(bool)
+        n_rows = int(was_active.sum())
+        self._spec_steps += 1
+        self._spec_rows += n_rows
+        self._spec_proposed += k * n_rows
+        for slot in np.nonzero(was_active)[0]:
+            m = int(adv[slot])
+            self._spec_accepted += m - 1
+            self._spec_emitted += m
+            self._cur_tok[slot, 0] = emitted[slot, m - 1]
+            self._emit(slot, [int(t) for t in emitted[slot, :m]],
+                       bool(done[slot]), step, out)
+
     @torch.inference_mode()
     def tick(self, step: int = 0) -> TickResult:
         """One iteration: a chunk for every mid-prefill slot, then the
-        slot-wise decode step if any slot is live."""
+        slot-wise decode step (or, with ``speculate_k``, the spec step)
+        if any slot is live."""
         out: dict[int, Completion] = {}
         dispatches = self._feed_prefills(step, out)
         decoded = False
         if self._active.any():
             was_active = self._active.copy()
-            args = (self._cur_tok, self._cache_index, self._keys,
-                    self._active, self._temp.view(np.int32), self._eos,
-                    self._gen, self._max_toks) \
-                + ((self._block_table, self._shared_cols) if self.paged
-                   else ())
-            prog = self.program("decode", *args)
-            t0 = time.perf_counter()
-            ints = prog(*args)
-            self.decode_seconds += time.perf_counter() - t0
-            self.decode_steps += 1
-            tok, self._cache_index, active, self._gen, done = ints[:5]
-            self._keys = ints[5:].T.copy()
-            self._cur_tok = tok[:, None].copy()
-            self._active = active.astype(bool)
-            done = done.astype(bool)
-            for slot in np.nonzero(was_active)[0]:
-                req = self._slot_req[slot]
-                self._slot_toks[slot].append(int(tok[slot]))
-                self._events.append((req.rid,
-                                     len(self._slot_toks[slot]) - 1,
-                                     int(tok[slot])))
-                if done[slot]:
-                    reason = ("eos" if int(tok[slot]) == req.eos_id
-                              else "length")
-                    out[req.rid] = Completion(
-                        req.rid, [int(t) for t in req.prompt],
-                        self._slot_toks[slot], reason,
-                        int(self._slot_admitted[slot]), step)
-                    self._retire(slot)
+            if self.speculate_k > 0:
+                self._decode_spec(step, out, was_active)
+            else:
+                self._decode_one(step, out, was_active)
             decoded = True
             dispatches += 1
         events, self._events = self._events, []

@@ -1079,3 +1079,104 @@ def test_prefix_cache_on_equals_off_on_the_card(dev, family):
     on.drain()
     on.flush_prefix_cache()
     assert on._alloc.live_blocks == 0
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the verify shape and the spec step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_paged_attention_at_the_verify_shape(dev):
+    """A verify step's K3 call (4 rows of S = 4): one row inactive, one
+    with its last drafts past the table width; the pools equal the
+    plain version's bit for bit, trash block included, in every call,
+    and the active rows' outputs within BF16_TOL of it."""
+    rng = np.random.default_rng(44)
+    b, s, kvh, grp, hd, bs, w = 4, 4, 2, 8, 128, 16, 6
+    nb = 1 + b * w
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    table = torch.arange(1, nb, dtype=torch.int32, device=dev).reshape(b, w)
+    table[2] = 0
+    ci = torch.tensor([38, 76, 0, w * bs - 2], dtype=torch.int32,
+                      device=dev)
+    args = [rnd(b, s, kvh, grp, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
+            rnd(nb, bs, kvh, hd), rnd(nb, bs, kvh, hd), table,
+            table.clone(), ci]
+    rk, rv, ro = pa.paged_attention(*args, kv_len=81, backend="torch")
+    for _ in range(2):
+        kp, vp = args[3].clone(), args[4].clone()
+        _, _, out = pa.paged_attention(*args[:3], kp, vp, *args[5:],
+                                       kv_len=81)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, rk) and torch.equal(vp, rv)
+        active = [0, 1, 3]
+        torch.testing.assert_close(out[active].float(), ro[active].float(),
+                                   **BF16_TOL)
+
+
+class _Replay:
+    """The perfect drafter: recorded completions replayed."""
+
+    def __init__(self, seqs):
+        self.seqs = [list(q) for q in seqs]
+
+    def propose(self, context, k):
+        for q in self.seqs:
+            if q[:len(context)] == list(context):
+                return q[len(context):len(context) + k]
+        return []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "hybrid", "xlstm",
+                                    "dense-bf16"])
+def test_spec_step_on_the_card_equals_one_token_steps(dev, family):
+    """A greedy and sampled burst served at k = 0 and, with the n-gram
+    and the replay drafter, at k = 3 (the verify step on K1 and K3 as a
+    graph; in ``bf16`` its float projections on cuBLAS, position by
+    position): the same tokens; the pools (the trash block excepted) and
+    the recurrent rows the k = 0 run's, bit for bit; the graph run's
+    whole state, trash block included, the eager run's (the spec step
+    is warmed up on an all-inactive step, which leaves everything as it
+    was); one spec program."""
+    from repro_torch.serve import (ContinuousBatchingScheduler, kv_pool,
+                                   synthetic_workload)
+    if family == "xlstm":
+        cfg, params = _xlstm(dev, "pum")
+    elif family == "dense-bf16":
+        cfg, params = _served(dev, "bf16")
+    else:
+        cfg, params = _prefix_config(dev, family)
+    reqs = synthetic_workload(4, cfg.vocab_size, min_prompt=3,
+                              max_prompt=20, max_new=10,
+                              temperature_choices=(0.0, 0.7), seed=6)
+    kw = dict(num_slots=4, max_len=32, kv_block_size=8,
+              chunked_prefill=True, device=dev)
+    base = ContinuousBatchingScheduler(cfg, params, **kw)
+    want = {r: c.tokens for r, c in base.run(reqs).items()}
+    replay = _Replay([list(r.prompt) + want[r.rid] for r in reqs])
+    for drafter in ("ngram", replay):
+        runs = []
+        for graphs in (True, False):
+            sched = ContinuousBatchingScheduler(
+                cfg, params, speculate_k=3, drafter=drafter,
+                cuda_graphs=graphs, **kw)
+            assert {r: c.tokens for r, c in sched.run(reqs).items()} == want
+            progs = sched.step_programs()
+            assert progs["decode"] == 0 and progs["spec"] == 1
+            torch.cuda.synchronize()
+            for st0, st1 in zip(base.states, sched.states):
+                for n, t in st0.items():
+                    a = t[1:] if kv_pool.is_paged_cache(st0) else t
+                    b = st1[n][1:] if kv_pool.is_paged_cache(st0) else st1[n]
+                    assert torch.equal(a, b), n
+            runs.append(sched)
+        assert all(torch.equal(t, runs[1].states[i][n])
+                   for i, st in enumerate(runs[0].states)
+                   for n, t in st.items())
+        if drafter is replay:
+            assert runs[0].spec_stats()["advance_per_step"] > 1.5

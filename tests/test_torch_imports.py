@@ -55,6 +55,20 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_spec_module_loads_no_jax():
+    """``repro_torch.serve.spec`` (the drafters) brings neither JAX nor
+    the JAX package into a fresh interpreter."""
+    import subprocess
+    import sys
+    code = ("import sys; import repro_torch.serve.spec; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -147,6 +161,30 @@ def test_serve_cli_prefix_cache(arch, capsys):
     for req in res["requests"]:
         assert res["completions"][req.rid].tokens == oracle_completion(
             res["scheduler"].engine, req)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["jamba-v0.1-52b"])
+def test_serve_cli_speculate_k(arch, capsys):
+    """``--speculate-k 3``: the ``speculative:`` line carries the
+    scheduler's counters, and the completions are those of
+    ``--speculate-k 0``; it needs the paged pool."""
+    args = ["--arch", arch, "--reduced", "--device", "cpu",
+            "--batch-slots", "2", "--requests", "3", "--min-prompt-len",
+            "3", "--prompt-len", "9", "--gen", "6", "--kv-block-size", "4",
+            "--chunked-prefill", "--temperature", "0.7"]
+    plain = serve.main(args)
+    res = serve.main(args + ["--speculate-k", "3"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("speculative: "))
+    stats = json.loads(line[len("speculative: "):])
+    assert stats == res["spec_stats"] and stats["steps"] > 0
+    assert stats["emitted"] == 3 * 5
+    assert {r: c.tokens for r, c in res["completions"].items()} == \
+        {r: c.tokens for r, c in plain["completions"].items()}
+    assert res["scheduler"].step_programs()["spec"] == 1
+    with pytest.raises(ValueError, match="rolls rejected draft KV"):
+        serve.main(args[:-5] + ["--kv-block-size", "0", "--speculate-k",
+                                "3"])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

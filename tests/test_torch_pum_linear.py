@@ -77,6 +77,61 @@ def test_bf16_mode_matches():
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_positionwise_runs_a_float_product_position_by_position(
+        dtype, monkeypatch):
+    """Inside ``positionwise`` a ``bf16``-mode product of [B, S, K] rows
+    runs as S products of [B, 1, K] rows, each bit-equal to that
+    position alone; outside it, one product over all rows; a norm's
+    mean likewise.  The integer modes give the same output inside and
+    outside."""
+    _, (tx, tw, tb_) = _case(4, dtype)
+    cfg = TPUM(mode="bf16")
+    shapes = []
+    matmul = torch.matmul
+
+    def recording(a, b):
+        shapes.append(tuple(a.shape))
+        return matmul(a, b)
+
+    monkeypatch.setattr(torch, "matmul", recording)
+    with tpl.positionwise():
+        got = tpl.pum_linear(tx, tw, cfg, bias=tb_)
+    assert shapes == [(2, 1, 96)] * 6
+    for j in range(6):
+        one = tpl.pum_linear(tx[:, j:j + 1].contiguous(), tw, cfg, bias=tb_)
+        assert torch.equal(got[:, j:j + 1], one), j
+    shapes.clear()
+    tpl.pum_linear(tx, tw, cfg, bias=tb_)
+    assert shapes == [(2, 6, 96)]
+    monkeypatch.undo()
+    for mode in ("pum", "int8"):
+        packed = tpre.pack_weight(tw, TPUM(mode=mode))
+        with tpl.positionwise():
+            inside = tpl.pum_linear(tx, packed, TPUM(mode=mode))
+        assert torch.equal(inside, tpl.pum_linear(tx, packed, TPUM(mode=mode)))
+    from repro_torch.config import small_test_config
+    from repro_torch.models import layers
+    cfg = small_test_config(d_model=96)
+    norm = {"scale": torch.from_numpy(
+        np.random.default_rng(5).normal(size=96).astype(np.float32))}
+    seen = []
+    mean = torch.mean
+
+    def recording_mean(x, *a, **kw):
+        seen.append(tuple(x.shape))
+        return mean(x, *a, **kw)
+
+    monkeypatch.setattr(torch, "mean", recording_mean)
+    with tpl.positionwise():
+        got = layers.norm_apply(norm, tx, cfg)
+    assert seen == [(2, 1, 96)] * 6
+    monkeypatch.undo()
+    for j in range(6):
+        assert torch.equal(got[:, j:j + 1], layers.norm_apply(
+            norm, tx[:, j:j + 1].contiguous(), cfg)), j
+
+
 def test_unported_paths_raise():
     """The raw-weight int8/pum forward has no gradient yet (the QAT
     straight-through estimator is not ported): it raises wherever
