@@ -19,8 +19,12 @@ gates as a dense one's, an MoE layer with its ``[G, E, D, F]``
 expert stacks and its f32 router (never packed) as ``[E, D, F]`` and
 ``[D, E]`` tensors, and a Mamba layer of Jamba's period 8 with its conv
 taps ``[inner, W]``, conv bias, ``a_log``, ``d_skip`` and ``dt_proj``'s
-bias as float tensors beside its four packed projections.  Packed
-planes keep the JAX ``[S, K, N]`` layout.
+bias as float tensors beside its four packed projections.  An
+encoder-decoder's ``encoder["blocks"]``, one tree stacked over
+``[encoder_layers]``, is unstacked the same way, a dict a layer; a
+decoder block's ``norm_x`` and ``cross`` and a vision stub's
+``vision_proj`` come across as any other node.  Packed planes keep the
+JAX ``[S, K, N]`` layout.
 """
 from __future__ import annotations
 
@@ -85,9 +89,18 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"{period} x {groups} stacked blocks do not make "
                          f"{cfg.num_layers} layers")
     out = {k: _convert(v, dev, None) for k, v in tree.items()
-           if k != "blocks"}
+           if k not in ("blocks", "encoder")}
     out["blocks"] = [_convert(tree["blocks"][j], dev, g)
                      for g in range(groups) for j in range(period)]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        if _n_groups(enc["blocks"]) != cfg.encoder_layers:
+            raise ValueError(f"{_n_groups(enc['blocks'])} stacked encoder "
+                             f"blocks, not {cfg.encoder_layers}")
+        out["encoder"] = {k: _convert(v, dev, None) for k, v in enc.items()
+                          if k != "blocks"}
+        out["encoder"]["blocks"] = [_convert(enc["blocks"], dev, layer)
+                                    for layer in range(cfg.encoder_layers)]
     return out
 
 

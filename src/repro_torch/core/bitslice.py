@@ -26,14 +26,28 @@ def quantize_symmetric(x: torch.Tensor, bits: int, axis=None,
     per-channel scales (kept as size-1 dims); None = per-tensor (a
     0-d scale).  Rounding is half to even, as in ``jnp.round``.
     """
+    scale = symmetric_scale(x, bits, axis)
+    return quantize_to(x, scale, bits), scale
+
+
+def symmetric_scale(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """:func:`quantize_symmetric`'s scale: absmax / (2^(b-1) - 1)."""
     qmax = (1 << (bits - 1)) - 1
     if axis is None:
         absmax = x.abs().amax()
     else:
         absmax = x.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(absmax, 1e-12) / qmax
-    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
-    return q, scale
+    return torch.clamp_min(absmax, 1e-12) / qmax
+
+
+def quantize_to(x: torch.Tensor, scale: torch.Tensor, bits: int
+                ) -> torch.Tensor:
+    """``x`` at a given ``scale`` (broadcast): int32 in
+    [-(2^(b-1)-1), 2^(b-1)-1], rounded half to even, element by element,
+    so a slice of ``x`` at the matching slice of ``scale`` gives that
+    slice of the whole."""
+    qmax = (1 << (bits - 1)) - 1
+    return torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

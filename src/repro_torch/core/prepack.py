@@ -54,6 +54,10 @@ class PackedLinear:
         return self.wq.device
 
 
+# weights quantised and sliced in one pass of pack_weight
+PACK_ELEMS = 1 << 26
+
+
 def pack_weight(w: torch.Tensor, cfg: PUMConfig) -> PackedLinear:
     """Quantise + bit-slice a float weight ``[..., K, N]`` once: a
     per-tensor scale (per element of any leading stack dims) for
@@ -64,16 +68,32 @@ def pack_weight(w: torch.Tensor, cfg: PUMConfig) -> PackedLinear:
         raise ValueError(f"packed weights are stored int8; weight_bits="
                          f"{cfg.weight_bits} does not fit")
     w32 = w.to(torch.float32)
-    if cfg.mode == "int8":
-        q, s = bitslice.quantize_symmetric(w32, 8, axis=w.ndim - 2)
-        return PackedLinear(None, q.to(torch.int8), s, "int8", 8, 1)
-    q, s = bitslice.quantize_symmetric(w32, cfg.weight_bits,
-                                       axis=(w.ndim - 2, w.ndim - 1))
-    planes = bitslice.slice_planes_signed(q, cfg.weight_bits,
-                                          cfg.bits_per_slice)
-    planes = torch.movedim(planes, 0, -3).contiguous()    # [..., S, K, N]
-    return PackedLinear(planes.to(torch.int8), q.to(torch.int8), s,
-                        "pum", cfg.weight_bits, cfg.bits_per_slice)
+    int8 = cfg.mode == "int8"
+    bits = 8 if int8 else cfg.weight_bits
+    axis = w.ndim - 2 if int8 else (w.ndim - 2, w.ndim - 1)
+    scale = bitslice.symmetric_scale(w32, bits, axis)
+    # column by column: the quantiser's and the slicer's int32
+    # temporaries cover PACK_ELEMS weights at a time (whole, a 12288 x
+    # 33792 weight's took ~25 GB at once); every op is elementwise, so
+    # the columns pack as the whole would
+    n = w.shape[-1]
+    step = max(1, PACK_ELEMS // max(1, w.numel() // max(1, n)))
+    wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    planes = None if int8 else torch.empty(
+        w.shape[:-2] + (cfg.n_slices,) + w.shape[-2:], dtype=torch.int8,
+        device=w.device)                                  # [..., S, K, N]
+    for n0 in range(0, n, step):
+        cols = slice(n0, n0 + step)
+        q = bitslice.quantize_to(
+            w32[..., cols], scale[..., cols] if int8 else scale, bits)
+        wq[..., cols] = q
+        if planes is not None:
+            planes[..., cols] = torch.movedim(bitslice.slice_planes_signed(
+                q, cfg.weight_bits, cfg.bits_per_slice), 0, -3)
+    if int8:
+        return PackedLinear(None, wq, scale, "int8", 8, 1)
+    return PackedLinear(planes, wq, scale, "pum", cfg.weight_bits,
+                        cfg.bits_per_slice)
 
 
 def _packable(v: Any) -> bool:

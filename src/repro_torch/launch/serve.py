@@ -23,6 +23,15 @@ card serves one 8-layer period, which keeps the whole layout, through
 ``main(argv, cfg=configs.get("jamba-v0.1-52b").replace(num_layers=8))``
 (``chip_smoke.py``).  ``--reduced`` serves its miniature.
 
+``--arch glm4-9b``, ``minicpm-2b`` and ``command-r-plus-104b`` serve
+through the dense path (command-r-plus-104b's 64 layers do not fit one
+card: the card serves a cut of its depth through ``main(argv,
+cfg=...)``).  ``--arch llava-next-mistral-7b`` serves text alone and
+``--arch whisper-tiny`` its decoder alone (no encoder frames), as the
+reference's CLI does; the image prefix is reached through
+``lm.forward(image_embeds=)`` and the audio path through
+``ServeEngine.generate(encoder_frames=)``.
+
 ``--prefix-cache`` shares the pool blocks of full prompt prefixes
 between requests (paged only) and prints its counters on a
 ``prefix-cache: {json}`` line; ``--shared-prefix-len N`` starts every
@@ -147,8 +156,9 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     cfg = cfg.replace(pum=PUMConfig(mode=args.pum_mode))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
-    params = lm.prepack_for_serving(lm.init_params(cfg, gen, device=dev),
-                                    cfg)
+    # each layer packed as soon as it is drawn: the float tree never
+    # lives whole on the card (glm4-9b's is 37.6 GB)
+    params = lm.init_params(cfg, gen, device=dev, pack=True)
     max_len = args.prompt_len + args.gen + 1
     if args.batch_slots <= 0:
         return static_batch(cfg, params, args, dev, max_len)

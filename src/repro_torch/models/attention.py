@@ -12,7 +12,10 @@ the plain composition, and a prompt of more than ``2 * CHUNK_Q`` tokens
 at once through :func:`_chunked_attention`, the reference's online
 softmax (plain PyTorch, as the reference's is XLA code); the paged
 branch refuses such a prompt, as the reference's does: chunked prefill
-streams it.  Cross-attention is not ported yet.
+streams it.  Cross-attention (``cross_kv``: an encoder-decoder's, and
+the bidirectional self-attention of its encoder) takes its K/V as
+given, no RoPE and a full mask, through the plain composition, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -118,6 +121,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor,
               cache: Params | None = None,
               cache_index: torch.Tensor | None = None,
+              cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
               use_rope: bool = True,
               block_table: torch.Tensor | None = None,
               kv_len: int | None = None,
@@ -126,7 +130,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """x: [B, S, D].  Modes: causal self-attention (cache None); decode /
     prefill into a contiguous cache (``k``/``v``; cache_index a scalar or
     [B]); paged (``k_pool``/``v_pool`` with ``block_table`` [B, W],
-    cache_index [B]).  Caches are updated in place and returned."""
+    cache_index [B]); cross-attention (``cross_kv``: K and V [B, T, KV,
+    hd] as given, every key attended, no cache and no RoPE on them).
+    Caches are updated in place and returned."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     kvh = cfg.num_kv_heads
@@ -136,15 +142,22 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError("I-BERT integer softmax is not ported")
 
     q = layers.linear(p["wq"], x, pum).reshape(b, s, kvh, g, hd)
-    k = layers.linear(p["wk"], x, pum).reshape(b, s, kvh, hd)
-    v = layers.linear(p["wv"], x, pum).reshape(b, s, kvh, hd)
-    if use_rope:
-        cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
-        q = apply_rope_gqa(q, cos, sin)
-        k = layers.apply_rope(k, cos, sin)
+    if cross_kv is None:
+        k = layers.linear(p["wk"], x, pum).reshape(b, s, kvh, hd)
+        v = layers.linear(p["wv"], x, pum).reshape(b, s, kvh, hd)
+        if use_rope:
+            cos, sin = layers.rope_tables(positions, hd, cfg.rope_theta)
+            q = apply_rope_gqa(q, cos, sin)
+            k = layers.apply_rope(k, cos, sin)
+    else:
+        k, v = cross_kv
 
     softcap = cfg.attn_logit_softcap
-    if cache is not None and "k_pool" in cache:
+    if cross_kv is not None:
+        mask = torch.ones((s, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = plain_attention(q, k, v, mask, softcap)
+    elif cache is not None and "k_pool" in cache:
         cache_index = torch.as_tensor(cache_index, dtype=torch.int32,
                                       device=x.device)
         if cache_index.ndim != 1:

@@ -1,9 +1,14 @@
 """The assembled language model: embeddings -> block stack -> head.
 
-Dense decoders (Qwen2.5-3B), the xLSTM family (xLSTM-350M), the MoE
-family (OLMoE-1B-7B, granite-moe-1b-a400m: attention with routed
-experts) and the hybrid family (Jamba-v0.1: Mamba and attention mixers,
-dense and routed FFNs), and the small test configs of each.  Params are
+Dense decoders (Qwen2.5-3B, glm4-9b, minicpm-2b, command-r-plus-104b),
+the xLSTM family (xLSTM-350M), the MoE family (OLMoE-1B-7B,
+granite-moe-1b-a400m: attention with routed experts), the hybrid family
+(Jamba-v0.1: Mamba and attention mixers, dense and routed FFNs), the
+vision-language stub (llava-next-mistral-7b: precomputed image
+embeddings, projected and put in front of the tokens) and the
+encoder-decoder (whisper-tiny: an encoder over precomputed frames, and
+cross-attention over its output in every decoder block), and the small
+test configs of each.  Params are
 per layer — ``params["blocks"][l]`` — and a Python loop over layers
 takes the place of the JAX package's ``scan`` over stacked groups;
 decode states are per layer too (``states[l]``): a KV cache or pool, or
@@ -18,18 +23,38 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core import prepack, pum_linear
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, mlp, transformer
 
 Params = dict[str, Any]
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: the decoder's widths, every layer attention
+    and a dense MLP."""
+    return cfg.replace(attn_period=0, xlstm_slstm_every=0,
+                       moe=cfg.moe.__class__())
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: str | torch.device = "cuda") -> Params:
+                device: str | torch.device = "cuda", *,
+                pack: bool = False) -> Params:
     """Random weights drawn on ``device`` from ``generator`` (which must
     live on that device) with the JAX package's distributions; an MoE
-    layer's router and f32 expert stacks [E, D, F] / [E, F, D] too."""
+    layer's router and f32 expert stacks [E, D, F] / [E, F, D] too.
+    In the reference's order: the embedding, the lm head, the decoder
+    blocks, an encoder-decoder's encoder (blocks, then its positional
+    embedding [encoder_seq, D]), a vision stub's ``vision_proj``.
+
+    ``pack`` packs each layer's linears as soon as it is drawn and drops
+    its float weights (``prepack_for_serving`` of the whole tree, bit
+    for bit, the draws being the same): the float tree never lives
+    whole, so loading peaks at the packed tree and one float layer."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
+
+    def packed(tree):
+        return prepack_for_serving(tree, cfg) if pack else tree
+
     params: Params = {
         "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                    dev),
@@ -39,8 +64,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = torch.randn(
             (cfg.d_model, layers.padded_vocab(cfg.vocab_size)),
             generator=generator, device=dev) * 0.02
-    params["blocks"] = [transformer.init_block(generator, cfg, j, dev)
-                        for j in range(cfg.num_layers)]
+    params["blocks"] = [
+        packed(transformer.init_block(generator, cfg, j, dev,
+                                      cross=cfg.is_encoder_decoder))
+        for j in range(cfg.num_layers)]
+    if cfg.is_encoder_decoder:
+        enc = encoder_config(cfg)
+        params["encoder"] = {
+            "blocks": [packed(transformer.init_block(generator, enc, 0, dev))
+                       for _ in range(cfg.encoder_layers)],
+            "norm": layers.make_norm(cfg, dev),
+            "pos_embed": torch.randn((cfg.encoder_seq, cfg.d_model),
+                                     generator=generator, device=dev) * 0.02,
+        }
+    if cfg.vision_stub:
+        params["vision_proj"] = packed(
+            layers.linear_init(generator, cfg.d_model, cfg.d_model,
+                               device=dev))
     return params
 
 
@@ -109,9 +149,41 @@ def reset_states(cfg: ModelConfig, states: list[Params],
             (t if row is None else t[row]).fill_(init[name])
 
 
+def _run_encoder(params: Params, cfg: ModelConfig,
+                encoder_frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings [B, T, D] (the conv
+    front end is a stub, as in the reference): the positional embedding
+    added, then per block bidirectional self-attention (K and V of the
+    block's own input through ``cross_kv``: a full mask, no RoPE) and
+    the MLP, then the final norm.  The frames' dtype is the encoder's:
+    ``forward`` passes them in the activation dtype, the engine as
+    given, as the reference's do."""
+    enc_cfg = encoder_config(cfg)
+    enc = params["encoder"]
+    t = encoder_frames.shape[1]
+    h = encoder_frames + enc["pos_embed"][None, :t]
+    positions = torch.arange(t, dtype=torch.int32, device=h.device)
+    hd = enc_cfg.resolved_head_dim
+    for blk in enc["blocks"]:
+        hh = layers.norm_apply(blk["norm1"], h, enc_cfg)
+        b = hh.shape[0]
+        k, v = (layers.linear(blk["attn"][w], hh, enc_cfg.pum).reshape(
+            b, t, enc_cfg.num_kv_heads, hd) for w in ("wk", "wv"))
+        hh, _ = attention.attention(blk["attn"], hh, enc_cfg,
+                                    positions=positions, cross_kv=(k, v),
+                                    use_rope=False)
+        h = h + hh
+        hh = layers.norm_apply(blk["norm2"], h, enc_cfg)
+        h = h + mlp.mlp(blk["mlp"], hh, enc_cfg)
+    return layers.norm_apply(enc["norm"], h, cfg)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             states: list[Params] | None = None,
             cache_index: torch.Tensor | int | None = None,
+            image_embeds: torch.Tensor | None = None,
+            encoder_frames: torch.Tensor | None = None,
+            encoder_out: torch.Tensor | None = None,
             last_only: bool = False,
             block_table: torch.Tensor | None = None,
             kv_len: int | None = None,
@@ -134,11 +206,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     j + 1 one-token steps leave; it writes no recurrent state (it
     implies ``commit=False``), while KV storage is written as ever.
     The f32 lm head is a :func:`~repro_torch.core.pum_linear.float_matmul`
-    (position by position under ``pum_linear.positionwise``)."""
+    (position by position under ``pum_linear.positionwise``).
+
+    ``image_embeds`` [B, N, D] (a vision stub's): projected through
+    ``vision_proj`` in the activation dtype and put in front of the
+    token embeddings; S and the positions are then the joined length's.
+    ``encoder_frames`` [B, T, D] (an encoder-decoder's) runs the encoder
+    (:func:`_run_encoder`, the frames cast to the activation dtype), or
+    pass its output as ``encoder_out``; the decoder blocks attend over
+    it."""
     b, s = tokens.shape
     dev = tokens.device
     h = params["embed"][tokens].to(
         torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
+    if image_embeds is not None:
+        img = layers.linear(params["vision_proj"], image_embeds.to(h.dtype),
+                            cfg.pum)
+        h = torch.cat([img, h], dim=1)
+        s = h.shape[1]
     if cache_index is not None:
         cache_index = torch.as_tensor(cache_index, dtype=torch.int32,
                                       device=dev)
@@ -147,13 +232,17 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                      if cache_index.ndim == 1 else cache_index + offs)
     else:
         positions = torch.arange(s, dtype=torch.int32, device=dev)
+    if (cfg.is_encoder_decoder and encoder_out is None
+            and encoder_frames is not None):
+        encoder_out = _run_encoder(params, cfg, encoder_frames.to(h.dtype))
 
     out_states = None if states is None else []
     for j, blk in enumerate(params["blocks"]):
         st = states[j] if states is not None else None
         h, st = transformer.apply_block(
             blk, h, cfg, j, positions=positions, state=st,
-            cache_index=cache_index, block_table=block_table,
+            cache_index=cache_index, encoder_out=encoder_out,
+            block_table=block_table,
             kv_len=kv_len, write_table=write_table, commit=commit,
             collect_states=collect_states)
         if out_states is not None:

@@ -5,8 +5,9 @@ interleave of Mamba and attention); the FFN is a dense MLP, the MoE
 family's routed experts (``models/moe.py``, beside attention or Mamba),
 or none (xLSTM's ``d_ff`` is 0).  Layer ``l`` takes the kinds of
 position ``l % period(cfg)`` of the repeating pattern, as the
-reference's grouped stack does.  Cross-attention, encoder-decoder and
-vision models are not ported yet and raise ``NotImplementedError``."""
+reference's grouped stack does.  An encoder-decoder's decoder blocks
+(``cross=True``) add a cross-attention block over the encoder's output
+between the mixer and the FFN; the decoder takes no RoPE."""
 from __future__ import annotations
 
 from typing import Any
@@ -65,11 +66,7 @@ def layer_kinds(cfg: ModelConfig, layer: int) -> tuple[str, str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model families the port does not serve yet."""
-    if cfg.is_encoder_decoder or cfg.vision_stub:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision models are not "
-            f"ported yet")
+    """Raise for layer layouts the port does not serve."""
     for j in range(cfg.num_layers):
         mk, fk = layer_kinds(cfg, j)
         if fk == "moe" and mk not in ("attn", "mamba"):
@@ -79,7 +76,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
-               device: torch.device | str = "cpu") -> Params:
+               device: torch.device | str = "cpu", cross: bool = False
+               ) -> Params:
+    """One layer's params, drawn mixer, FFN, then (``cross``, an
+    encoder-decoder's decoder) the cross-attention, the reference's
+    order of keys."""
     check_supported(cfg)
     mk, fk = layer_kinds(cfg, layer_idx)
     p: Params = {"norm1": layers.make_norm(cfg, device)}
@@ -97,6 +98,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
         p["mlp"] = mlp.init_mlp(gen, cfg, device=device)
     elif fk == "moe":
         p["moe"] = moe.init_moe(gen, cfg, device)
+    if cross:
+        p["norm_x"] = layers.make_norm(cfg, device)
+        p["cross"] = attention.init_attention(gen, cfg, device)
     return p
 
 
@@ -132,6 +136,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 layer_idx: int, *, positions: torch.Tensor,
                 state: Params | None = None,
                 cache_index: torch.Tensor | None = None,
+                encoder_out: torch.Tensor | None = None,
                 block_table: torch.Tensor | None = None,
                 kv_len: int | None = None,
                 write_table: torch.Tensor | None = None,
@@ -144,13 +149,17 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     recurrent mixer's state after every position ([B, S, ...] leaves)
     and writes none of it: it implies ``commit=False``; KV caches are
     written as ever, and the step rolls back what it rejects.  An MoE
-    FFN's aux losses are not computed (serving needs none)."""
+    FFN's aux losses are not computed (serving needs none).  With
+    ``encoder_out`` [B, T, D], a block with ``cross`` params attends
+    over it, its K and V projected from it on every call, as the
+    reference's block does; without, the block skips it."""
     mk, _ = layer_kinds(cfg, layer_idx)
     h = layers.norm_apply(p["norm1"], x, cfg)
     if mk == "attn":
         h, state = attention.attention(
             p["attn"], h, cfg, positions=positions, cache=state,
-            cache_index=cache_index, block_table=block_table, kv_len=kv_len,
+            cache_index=cache_index, use_rope=not cfg.is_encoder_decoder,
+            block_table=block_table, kv_len=kv_len,
             write_table=write_table)
     else:
         h, new = _MIXERS[mk](p[mk], h, cfg, state=state,
@@ -160,6 +169,16 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         elif new is not None:
             state = new
     x = x + h
+    if "cross" in p and encoder_out is not None:
+        h = layers.norm_apply(p["norm_x"], x, cfg)
+        b, t, _ = encoder_out.shape
+        kv = (cfg.num_kv_heads, cfg.resolved_head_dim)
+        cross_kv = tuple(
+            layers.linear(p["cross"][w], encoder_out, cfg.pum).reshape(
+                b, t, *kv) for w in ("wk", "wv"))
+        h, _ = attention.attention(p["cross"], h, cfg, positions=positions,
+                                   cross_kv=cross_kv, use_rope=False)
+        x = x + h
     if "mlp" in p:
         h = layers.norm_apply(p["norm2"], x, cfg)
         x = x + mlp.mlp(p["mlp"], h, cfg)

@@ -16,6 +16,15 @@ if it ran alone through it.  The engine prepacks ``int8``/``pum``
 weights at construction, so serving pays quantisation and slicing
 once, at load.
 
+An encoder-decoder (whisper-tiny) takes ``encoder_frames`` [B, T, D]
+in ``generate``, ``generate_loop`` and ``prefill``: the encoder runs
+once, at prefill, and every decode step attends over its output,
+projecting its K and V anew as the reference's step does.  In the
+compiled programs the frames and the encoder's output live in two
+device buffers of the engine's: the caller's frames are copied into the
+first before the prefill program runs, which writes the second, which
+the decode program reads.
+
 Sampling follows the reference: greedy at temperature <= 0, else a
 Gumbel-max draw from a threefry key (``serve.prng``), keyed by the
 request's seed and folded with the step number, so a seeded request
@@ -45,21 +54,25 @@ class RequestTooLarge(ValueError):
 
 
 def make_decode_step(cfg: ModelConfig, kv_len: int | None = None):
-    """(params, states, token [B,1], cache_index, block_table=None,
-    write_table=None, commit=True) -> (logits [B,1,V], states).
+    """(params, states, token [B,1], cache_index, encoder_out=None,
+    block_table=None, write_table=None, commit=True) -> (logits [B,1,V],
+    states).
 
     ``cache_index`` is a scalar for lockstep decode or [B] for slot-wise
     decode; with a paged state pass ``block_table`` and build the step
     with ``kv_len`` = the engine window.  ``commit=False`` leaves the
     recurrent states as they were and returns their successors
-    (``lm.forward``)."""
+    (``lm.forward``).  ``encoder_out`` is an encoder-decoder's encoder
+    output, which every step attends over."""
 
     def decode_step(params, states, token, cache_index, *,
-                    block_table=None, write_table=None, commit=True):
+                    encoder_out=None, block_table=None, write_table=None,
+                    commit=True):
         return lm.forward(params, token, cfg, states=states,
-                          cache_index=cache_index, last_only=True,
-                          block_table=block_table, kv_len=kv_len,
-                          write_table=write_table, commit=commit)
+                          cache_index=cache_index, encoder_out=encoder_out,
+                          last_only=True, block_table=block_table,
+                          kv_len=kv_len, write_table=write_table,
+                          commit=commit)
 
     return decode_step
 
@@ -168,10 +181,12 @@ class ServeEngine:
             self._capture_stream = torch.cuda.Stream(self.device)
         else:
             self._graph_pool = self._capture_stream = None
-        # (batch, prompt length, temperature) -> generate's prefill and
-        # decode programs and the window they write
+        # (batch, prompt length, temperature[, the encoder frames' (T, D,
+        # dtype)]) -> generate's prefill and decode programs and the
+        # window they write; with frames, the buffer they are copied into
         self._scans: dict[tuple, tuple[CompiledStep, CompiledStep,
                                        list[dict]]] = {}
+        self._frames: dict[tuple, torch.Tensor] = {}
 
     def compile_step(self, fn: Callable, shapes: Sequence[tuple[int, ...]],
                      *values, advances: Sequence[torch.Tensor] = ()
@@ -205,24 +220,46 @@ class ServeEngine:
                 f"{self.max_len}")
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor
+    def encode(self, encoder_frames: torch.Tensor | None
+               ) -> torch.Tensor | None:
+        """An encoder-decoder's encoder output over ``encoder_frames``
+        [B, T, D], taken as given (the reference's engine does not cast
+        them); None for any other model or without frames."""
+        if not self.cfg.is_encoder_decoder or encoder_frames is None:
+            return None
+        with self.backend_ctx():
+            return lm._run_encoder(self.params, self.cfg,
+                                   encoder_frames.to(self.device))
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor,
+                encoder_frames: torch.Tensor | None = None, *,
+                encoder_out: torch.Tensor | None = None
                 ) -> tuple[list[dict], torch.Tensor]:
-        """tokens: [B, S] -> (contiguous states, last logits [B,1,V])."""
+        """tokens: [B, S] -> (contiguous states, last logits [B,1,V]);
+        an encoder-decoder attends over ``encoder_out``, or over the
+        encoder's output on ``encoder_frames`` (:meth:`encode`)."""
         b = tokens.shape[0]
+        if encoder_out is None:
+            encoder_out = self.encode(encoder_frames)
         states = lm.init_state(self.cfg, b, self.max_len, self.device)
         with self.backend_ctx():
             logits, states = lm.forward(self.params, tokens, self.cfg,
                                         states=states, cache_index=0,
+                                        encoder_out=encoder_out,
                                         last_only=True)
         return states, logits
 
     @torch.inference_mode()
-    def decode(self, states, token: torch.Tensor, index
+    def decode(self, states, token: torch.Tensor, index, *,
+               encoder_out: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, list[dict]]:
         with self.backend_ctx():
-            return self._decode(self.params, states, token, index)
+            return self._decode(self.params, states, token, index,
+                                encoder_out=encoder_out)
 
-    def _scan_programs(self, b: int, s: int, temperature: float
+    def _scan_programs(self, b: int, s: int, temperature: float,
+                       frames: tuple | None = None
                        ) -> tuple[CompiledStep, CompiledStep, list[dict]]:
         """``generate``'s programs at one shape, both unbuilt, and the
         contiguous window of their own that they write:
@@ -238,9 +275,21 @@ class ServeEngine:
         ``generate_loop``, op for op.  Prefill sets the window back to
         its init values first (KV zero, recurrent rows fresh), so it
         writes only what its inputs fix; decode advances the window's
-        recurrent rows, which it names (``CompiledStep``)."""
+        recurrent rows, which it names (``CompiledStep``).  With
+        ``frames``, the encoder frames' (T, D, dtype), prefill also runs
+        the encoder on a frames buffer (``self._frames``, which
+        ``generate`` fills) into a second buffer, which every decode
+        step reads: the programs' float input and state."""
         cfg, params, dev = self.cfg, self.params, self.device
         states = lm.init_state(cfg, b, self.max_len, dev)
+        frames_buf = enc_buf = None
+        if frames is not None:
+            t, d, dtype = frames
+            frames_buf = torch.zeros((b, t, d), dtype=dtype, device=dev)
+            self._frames[b, s, temperature, frames] = frames_buf
+            pos = params["encoder"]["pos_embed"]
+            enc_buf = torch.zeros((b, t, d), device=dev, dtype=
+                                  torch.promote_types(dtype, pos.dtype))
 
         def pack(tok, key, index):
             return (torch.cat([tok.reshape(-1), key,
@@ -249,16 +298,20 @@ class ServeEngine:
         def prefill(prompt, key):
             with self.backend_ctx():
                 lm.reset_states(cfg, states)
+                if enc_buf is not None:
+                    enc_buf.copy_(lm._run_encoder(params, cfg, frames_buf))
                 zero = torch.zeros((), dtype=torch.int32, device=dev)
                 logits, _ = lm.forward(params, prompt, cfg, states=states,
-                                       cache_index=zero, last_only=True)
+                                       cache_index=zero, last_only=True,
+                                       encoder_out=enc_buf)
                 tok = sample_token(logits, key, temperature)
             return pack(tok, key, zero + s)
 
         def decode(tok, key, index):
             with self.backend_ctx():
                 key = prng.fold_in(key, index - s)
-                logits, _ = self._decode(params, states, tok, index)
+                logits, _ = self._decode(params, states, tok, index,
+                                         encoder_out=enc_buf)
                 tok = sample_token(logits, key, temperature)
             return pack(tok, key, index + 1)
 
@@ -272,24 +325,35 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, prompt: torch.Tensor, steps: int,
                  temperature: float = 0.0, seed: int = 0,
-                 use_scan: bool | None = None) -> torch.Tensor:
+                 use_scan: bool | None = None, *,
+                 encoder_frames: torch.Tensor | None = None
+                 ) -> torch.Tensor:
         """prompt: [B, S] -> [B, S + steps], the tokens of
         ``generate_loop`` from the compiled prefill and decode step
         (``use_scan``, the engine's default), or ``generate_loop``
         itself.  The decode step replays with no value going to the
-        host; the tokens come back in one copy at the end."""
+        host; the tokens come back in one copy at the end.  An
+        encoder-decoder's ``encoder_frames`` [B, T, D] are copied into
+        the programs' frames buffer before prefill runs."""
         if use_scan is None:
             use_scan = self.use_scan
         if not use_scan:
-            return self.generate_loop(prompt, steps, temperature, seed)
+            return self.generate_loop(prompt, steps, temperature, seed,
+                                      encoder_frames=encoder_frames)
         if steps <= 0:
             return prompt
         b, s = prompt.shape
         self.check_window(s, steps)
+        if not self.cfg.is_encoder_decoder:
+            encoder_frames = None
         shape = (b, s, float(temperature))
+        if encoder_frames is not None:
+            shape += ((*encoder_frames.shape[1:], encoder_frames.dtype),)
         if shape not in self._scans:
             self._scans[shape] = self._scan_programs(*shape)
         prefill, decode, _ = self._scans[shape]
+        if encoder_frames is not None:
+            self._frames[shape].copy_(encoder_frames)
         prefill.stage(prompt.cpu().numpy().astype(np.int32),
                       prng.prng_key(seed).numpy())
         prefill.build()
@@ -306,8 +370,8 @@ class ServeEngine:
 
     def scan_programs(self) -> dict[tuple, int]:
         """How many times ``generate``'s programs were built, by (batch,
-        prompt length, temperature): once each, whatever the step
-        count, as the reference's scan body compiles once."""
+        prompt length, temperature, frames): once each, whatever the
+        step count, as the reference's scan body compiles once."""
         return {shape: 1 for shape in self._scans}
 
     def graphs_captured(self) -> tuple[int, float]:
@@ -319,16 +383,19 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate_loop(self, prompt: torch.Tensor, steps: int,
-                      temperature: float = 0.0, seed: int = 0
+                      temperature: float = 0.0, seed: int = 0, *,
+                      encoder_frames: torch.Tensor | None = None
                       ) -> torch.Tensor:
         """prompt: [B, S] -> [B, S + steps], one decode step per token.
         The first token is drawn with ``prng_key(seed)``, and the key is
         folded with ``i`` before the draw of token ``i + 1``, as the
-        reference's loop does."""
+        reference's loop does.  An encoder-decoder runs its encoder on
+        ``encoder_frames`` once, before prefill."""
         b, s = prompt.shape
         self.check_window(s, steps)
         prompt = prompt.to(self.device)
-        states, logits = self.prefill(prompt)
+        encoder_out = self.encode(encoder_frames)
+        states, logits = self.prefill(prompt, encoder_out=encoder_out)
         key = prng.prng_key(seed, self.device)
         out = [prompt.to(torch.int32)]
         tok = sample_token(logits, key, temperature)
@@ -337,6 +404,7 @@ class ServeEngine:
             if i == steps - 1:
                 break
             key = prng.fold_in(key, i)
-            logits, states = self.decode(states, tok, s + i)
+            logits, states = self.decode(states, tok, s + i,
+                                         encoder_out=encoder_out)
             tok = sample_token(logits, key, temperature)
         return torch.cat(out, dim=1)

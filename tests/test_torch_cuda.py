@@ -351,6 +351,34 @@ def test_paged_attention_kernel_launch_plans(dev, s, t, hd, softcap,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kvh,grp,hd", [(8, 12, 128), (2, 16, 128),
+                                        (36, 1, 64)])
+@pytest.mark.parametrize("s,t", [(1, 81), (4, 81), (16, 81), (1, 1024),
+                                 (16, 1024)])
+def test_paged_attention_at_wide_groups(dev, kvh, grp, hd, s, t):
+    """command-r-plus-104b's G = 12 and glm4-9b's G = 16, where one
+    position's heads span two CTAs of 8 queries (at G = 12 a CTA may
+    hold the tail of one position and the head of the next), and
+    minicpm-2b's 36 KV heads at G = 1, hd 64: the pools bit for bit,
+    the outputs within tolerance, two calls bit-equal."""
+    args = _attn_args(dev, s=s, q_dtype=torch.bfloat16, hd=hd, t=t,
+                      seed=grp * 100 + s + t, kvh=kvh, grp=grp)
+    rk, rv, ro = pa.paged_attention(*args, kv_len=t, backend="torch")
+    registry.reset_launches()
+    kk, kv, ko = pa.paged_attention(*args, kv_len=t)
+    torch.cuda.synchronize()
+    assert registry.LAUNCHES == {"paged_attention": 1}
+    assert torch.equal(kk, rk) and torch.equal(kv, rv)
+    assert torch.isfinite(ko[ACTIVE].float()).all()
+    torch.testing.assert_close(ko[ACTIVE].float(), ro[ACTIVE].float(),
+                               **BF16_TOL)
+    _assert_within_one_ulp_of_v(ko, args, t, ACTIVE)
+    _, _, again = pa.paged_attention(*args, kv_len=t)
+    torch.cuda.synchronize()
+    assert torch.equal(again[ACTIVE], ko[ACTIVE])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,t", [(1, 81), (1, 1000), (16, 81)])
 def test_paged_attention_attends_the_cells_it_stores(dev, s, t):
     """Each row's newest key is its query scaled up, so its last query

@@ -102,7 +102,9 @@ ARCHS = ["qwen2.5-3b", "xlstm-350m"]
 # the MoE family's rows share the expert capacity, so its completions
 # are not its solo oracle's (tests/test_torch_moe.py holds them)
 CLI_ARCHS = ARCHS + ["olmoe-1b-7b", "granite-moe-1b-a400m",
-                     "jamba-v0.1-52b"]
+                     "jamba-v0.1-52b", "glm4-9b", "minicpm-2b",
+                     "command-r-plus-104b", "llava-next-mistral-7b",
+                     "whisper-tiny"]
 
 
 @pytest.mark.parametrize("arch", CLI_ARCHS)

@@ -113,8 +113,12 @@ def test_paged_chunk_then_decode_match(mode, dtype):
 
 
 def test_unported_families_raise():
-    cfg = tqwen.reduced().replace(is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError):
+    """The one layout the port does not serve: an MoE FFN beside an
+    xLSTM mixer (every registered config is served)."""
+    from repro_torch.config import MoEConfig
+    cfg = tqwen.reduced().replace(xlstm_slstm_every=2, d_ff=128,
+                                  moe=MoEConfig(num_experts=4, top_k=2))
+    with pytest.raises(NotImplementedError, match="MoE FFNs"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0),
                         device="cpu")
 
