@@ -285,8 +285,35 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
    its own.  Prints the acceptance rate, advance a step, decode ms/step
    and tokens/s at k = 0, 3 and 4, a verify replay's device ms beside a
    decode replay's, and the per-position recurrent state bytes.
-14. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-13) must have launched there;
+14. frontend — the resilient front end (``serve.frontend.ServeFrontend``,
+   ``serve.policies``, ``serve.chaos``, ``ft``) over Qwen2.5-3B at full
+   width, one scheduler a layout.  (a) The CLI under a storm: phase 4's
+   geometry in ``pum``, ``--frontend --workload poisson --requests 12
+   --max-queue 6 --policy edf --chaos STORM --deadline-ms 300`` on a
+   virtual clock; gated: every rid resolves typed, faults were
+   injected, some requests end ``ok`` and some ``expired`` with a
+   non-empty truncated partial, each ``ok`` request's tokens equal bit
+   for bit its tokens from a fault-free ``sched.run`` of the same trace
+   on the same scheduler and each partial is a prefix of them, the
+   launches equal the per-pass counts times the steps and chunks
+   actually dispatched (a faulted dispatch launches nothing), nothing in
+   flight and no block live after it, and a second storm with the same
+   seed gives the same statuses, attempts, tokens and launches and
+   builds no step.  (b) Real time on that scheduler: phase 4's six
+   requests through the asyncio loop (``start``, ``submit``, ``async
+   for ... stream()``, ``stop(drain=True)``) on ``time.monotonic``,
+   each stream equal to its result and to the fault-free tokens; prints
+   the wall-clock TTFT and ITL p50/p99 and tokens/s of
+   ``metrics.snapshot()``; then one handle cancelled mid-decode and a
+   ``PreemptionHandler.request_stop()`` mid-trace: typed outcomes,
+   prefixes, a clean pool.  (c) The contiguous layout: the CLI with
+   ``--kv-block-size 0 --frontend --chaos STORM`` in ``int8`` at
+   ``CONTIG_LAYERS`` layers (no chunk fault can fire): every rid
+   resolves, survivors equal the fault-free run, launches exact.  The
+   virtual-clock milliseconds of (a) and (c) are functions of the
+   trace, not times of the card.
+15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-14) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
@@ -303,7 +330,8 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
 phases 1, 2 and 9, ``--only xlstm`` phases 1, 2, phase 3's xLSTM
 shapes and 10, ``--only moe`` phases 1, 2, phase 3's MoE shapes and
 11, ``--only hybrid`` phases 1, 2, phase 3's Jamba shapes and 12,
-``--only families`` phases 1, 2, phase 3's phase-13 shapes and 13.
+``--only families`` phases 1, 2, phase 3's phase-13 shapes and 13,
+``--only frontend`` phases 1, 2 and 14.
 """
 from __future__ import annotations
 
@@ -4515,6 +4543,259 @@ def families_phase(smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the resilient front end and fault tolerance
+# ---------------------------------------------------------------------------
+
+FE_STORM = "seed=0,fault=0.1,victim=0.08,chunk=0.08,stall=0.08,stall_ticks=2"
+# a virtual deadline (ms of the front end's clock, 0.01 s a pump) that
+# expires requests of the storm's trace both in the queue and mid-decode
+# (worked out on the CPU at the same trace: the tick structure depends
+# on the prompts' lengths and the arrivals, not on token values)
+FE_DEADLINE_MS = "300"
+FE_ARGS = SERVE_ARGS + ["--frontend", "--workload", "poisson", "--requests",
+                        "12", "--max-queue", "6", "--policy", "edf",
+                        "--chaos", FE_STORM]
+FE_CONTIG_ARGS = CONTIG_ARGS + ["--frontend", "--workload", "poisson",
+                                "--requests", "12", "--max-queue", "6",
+                                "--policy", "edf", "--chaos", FE_STORM]
+FE_STATUSES = ("ok", "rejected", "expired", "cancelled", "failed")
+
+
+def fe_outcomes(results: dict, want: dict[int, list[int]],
+                label: str) -> dict[int, tuple]:
+    """Gate a front end's results against the fault-free tokens: every
+    rid resolved with a typed status, each ``ok`` request's tokens equal
+    to ``want`` bit for bit, every other one's partial a prefix of them
+    with a typed error.  Returns {rid: (status, attempts, tokens)}."""
+    from repro_torch.serve import FrontendError
+    if sorted(results) != sorted(want):
+        raise AssertionError(f"{label}: resolved {sorted(results)}, trace "
+                             f"{sorted(want)}")
+    out = {}
+    for rid, r in sorted(results.items()):
+        if r.status not in FE_STATUSES:
+            raise AssertionError(f"{label}: rid {rid} status {r.status}")
+        if r.ok and r.tokens != want[rid]:
+            raise AssertionError(f"{label}: rid {rid} ok with {r.tokens}, "
+                                 f"fault-free {want[rid]}")
+        if not r.ok and (not isinstance(r.error, FrontendError)
+                         or r.tokens != want[rid][:len(r.tokens)]):
+            raise AssertionError(f"{label}: rid {rid} {r.status} error "
+                                 f"{r.error!r} partial {r.tokens} against "
+                                 f"{want[rid]}")
+        out[rid] = (r.status, r.attempts, r.tokens)
+    return out
+
+
+def fe_clean(sched, label: str) -> None:
+    """Nothing in flight, every slot free, no block of the pool live."""
+    live = sched._alloc.live_blocks if sched.paged else 0
+    if sched.in_flight() or sched._prefills or sched._active.any() or live \
+            or sched.num_free_slots != sched.num_slots:
+        raise AssertionError(f"{label}: in flight {sched.in_flight()}, "
+                             f"{live} blocks live after the run")
+
+
+def fe_storm(args_list: list[str], mode: str, smi: str, cfg=None,
+             paged: bool = True) -> tuple[dict, dict[str, int]]:
+    """14a / 14c: the CLI under the storm, then the gates; returns the
+    CLI's result (with ``first``, the storm's outcomes, and ``free``,
+    the fault-free run) and the launches of the storm and its replay."""
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    label = f"frontend {'paged' if paged else 'contiguous'} {mode}"
+    registry.reset_launches()
+    res = serve.main(args_list + ["--pum-mode", mode], cfg=cfg)
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched, fe, reqs = res["scheduler"], res["frontend"], res["requests"]
+    # a fresh scheduler: its counters are the storm's dispatches
+    steps, chunks = sched.decode_steps, sched.prefill_chunks
+    got = launch_gate(mode, sched.cfg, steps, chunks, launches, paged=paged)
+    if fe.chaos is None or fe.chaos.injected == 0:
+        raise AssertionError(f"{label}: no fault injected")
+    fe_clean(sched, label)
+    snap = res["snapshot"]
+    # the fault-free run of the same trace on the same scheduler
+    free = timed_run(sched, reqs)
+    first = fe_outcomes(res["results"], free["tokens"], label)
+    if "ok" not in [v[0] for v in first.values()]:
+        raise AssertionError(f"{label}: no request survived: {first}")
+    # the same seed again: the same outcomes, dispatches and launches,
+    # and no step built
+    progs, graphs = sched.step_programs(), sched.graphs_captured()[0]
+    registry.reset_launches()
+    before = sched.decode_steps, sched.prefill_chunks
+    fe2 = serve.build_frontend(sched, res["args"])
+    again = fe2.results(fe2.serve_trace(reqs))
+    torch.cuda.synchronize()
+    second = fe_outcomes(again, free["tokens"], label + " replay")
+    replay = dict(registry.LAUNCHES)
+    moved = (sched.decode_steps - before[0], sched.prefill_chunks - before[1])
+    if second != first or replay != launches or moved != (steps, chunks):
+        raise AssertionError(f"{label}: the same seed gave other outcomes, "
+                             f"dispatches or launches: {second} / {first}, "
+                             f"{moved} / {(steps, chunks)}, {replay} / "
+                             f"{launches}")
+    if sched.step_programs() != progs or sched.graphs_captured()[0] != \
+            graphs or graphs != len(sched._programs):
+        raise AssertionError(f"{label}: the storm built steps: "
+                             f"{sched.step_programs()} (had {progs}), "
+                             f"{sched.graphs_captured()[0]} graphs")
+    fe_clean(sched, label + " replay")
+    log(f"{label}: {sched.cfg.num_layers} layers, 12 requests, outcomes "
+        f"{res['outcomes']}, faults injected {fe.chaos.injected} (absorbed "
+        f"{snap['serve.faults']:.0f}), retries {snap['serve.retries']:.0f}, "
+        f"stalls {snap['serve.stalls']:.0f}, expired "
+        f"{snap['serve.expired']:.0f}; {steps} decode steps + {chunks} "
+        f"{'chunks' if paged else 'prefills'} dispatched, launches {got} "
+        f"(replays counted), the same in the replay, which built nothing; "
+        f"programs {progs}; storm wall {res['wall_s']:.2f} s (builds "
+        f"included) on {smi}")
+    log(f"{label} virtual clock (0.01 s a pump; not times of the card): "
+        f"ttft_ms p50 {snap['serve.ttft_ms_p50']} p99 "
+        f"{snap['serve.ttft_ms_p99']} itl_ms p50 {snap['serve.itl_ms_p50']}")
+    return dict(res, first=first, free=free), {
+        k: launches.get(k, 0) + replay.get(k, 0)
+        for k in set(launches) | set(replay)}
+
+
+def fe_async(sched, reqs) -> tuple:
+    """Serve ``reqs`` through the asyncio loop on ``time.monotonic``:
+    every stream consumed as its tokens come."""
+    import asyncio
+    from repro_torch.serve import ServeFrontend
+
+    async def scenario():
+        fe = ServeFrontend(sched)
+        await fe.start()
+        hs = [fe.submit(r) for r in reqs]
+
+        async def consume(h):
+            return [t async for t in h.stream()]
+
+        streams = await asyncio.gather(*(consume(h) for h in hs))
+        results = {h.rid: await h.result() for h in hs}
+        await fe.stop(drain=True)
+        return fe, hs, streams, results
+
+    return asyncio.run(scenario())
+
+
+def fe_interrupted(sched, reqs):
+    """The same requests, one handle cancelled once it has streamed 2
+    tokens and the front end preempted once another has streamed 4."""
+    import asyncio
+    from repro_torch.ft import PreemptionHandler
+    from repro_torch.serve import ServeFrontend
+
+    async def first(h, n):
+        got = []
+        async for t in h.stream():
+            got.append(t)
+            if len(got) == n:
+                break
+
+    async def scenario():
+        pre = PreemptionHandler(install=False)
+        fe = ServeFrontend(sched, preemption=pre)
+        await fe.start()
+        hs = [fe.submit(r) for r in reqs]
+        await first(hs[0], 2)
+        hs[0].cancel()
+        await first(hs[1], 4)
+        pre.request_stop()
+        results = {h.rid: await h.result() for h in hs}
+        await fe.stop()
+        return results
+
+    return asyncio.run(scenario())
+
+
+def frontend_phase(smi: str) -> dict[str, int]:
+    """Phase 14; returns its kernels' launches (the storms, replays and
+    fault-free runs included)."""
+    import gc
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.serve import synthetic_workload
+    t0 = time.perf_counter()
+    launches: dict[str, int] = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    res, storm = fe_storm(FE_ARGS + ["--deadline-ms", FE_DEADLINE_MS],
+                          "pum", smi)
+    add(storm)
+    partial = [rid for rid, (st, _, toks) in res["first"].items()
+               if st == "expired" and toks]
+    if not partial:
+        raise AssertionError(f"frontend paged pum: no request expired "
+                             f"mid-decode: {res['first']}")
+    log(f"frontend paged pum: expired mid-decode with a truncated prefix: "
+        f"{ {rid: len(res['first'][rid][2]) for rid in partial} } tokens")
+    sched = res["scheduler"]
+    # 14b: phase 4's six requests in real time
+    reqs = synthetic_workload(6, sched.cfg.vocab_size, min_prompt=20,
+                              max_prompt=64, max_new=16, seed=0)
+    free = timed_run(sched, reqs)           # builds the six's chunks too
+    add(free["launches"])
+    registry.reset_launches()
+    before = sched.decode_steps, sched.prefill_chunks
+    fe, hs, streams, results = fe_async(sched, reqs)
+    torch.cuda.synchronize()
+    launch_gate("pum", sched.cfg, sched.decode_steps - before[0],
+                sched.prefill_chunks - before[1], registry.LAUNCHES)
+    add(registry.LAUNCHES)
+    for h, stream in zip(hs, streams):
+        r = results[h.rid]
+        if not r.ok or stream != r.tokens or r.tokens != free["tokens"][
+                h.rid]:
+            raise AssertionError(f"frontend async: rid {h.rid} {r.status} "
+                                 f"stream {stream} result {r.tokens} "
+                                 f"fault-free {free['tokens'][h.rid]}")
+    fe_clean(sched, "frontend async")
+    snap = fe.metrics.snapshot()
+    log(f"frontend async wall clock (time.monotonic, phase 4's 6 requests "
+        f"x 16 tokens, 4 slots, graphs): ttft_ms p50 "
+        f"{snap['serve.ttft_ms_p50']:.3f} p99 {snap['serve.ttft_ms_p99']:.3f}"
+        f", itl_ms p50 {snap['serve.itl_ms_p50']:.3f} p99 "
+        f"{snap['serve.itl_ms_p99']:.3f}, tokens_per_s "
+        f"{snap['serve.tok_per_s']:.2f} ({snap['serve.tokens']:.0f} "
+        f"tokens; the fault-free sched.run before it, building the six's "
+        f"chunk steps: {free['tokens_per_s']:.2f}) on {smi}")
+    registry.reset_launches()
+    interrupted = fe_interrupted(sched, reqs)
+    fe_outcomes(interrupted, free["tokens"], "frontend interrupted")
+    st = {rid: (r.status, len(r.tokens)) for rid, r in interrupted.items()}
+    if st[0][0] != "cancelled" or st[0][1] < 2 or any(
+            s not in ("ok", "cancelled") for s, _ in st.values()):
+        raise AssertionError(f"frontend interrupted: {st}")
+    fe_clean(sched, "frontend interrupted")
+    add(registry.LAUNCHES)
+    log(f"frontend interrupted (a handle cancelled after 2 tokens, "
+        f"request_stop after 4 of another): {st}")
+    del res, sched, fe, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"frontend: paged in {time.perf_counter() - t0:.1f} s of the phase")
+    # 14c: contiguous windows, int8, no chunk to fault
+    res, storm = fe_storm(FE_CONTIG_ARGS, "int8", smi, cfg=contig_cut(),
+                          paged=False)
+    add(storm)
+    if res["snapshot"]["serve.faults"] != res["frontend"].chaos.injected:
+        raise AssertionError("frontend contiguous: a fault not absorbed")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"frontend: phase 14 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -4547,7 +4828,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
                                        "xlstm", "moe", "hybrid",
-                                       "families"],
+                                       "families", "frontend"],
                     default=None)
     args = ap.parse_args(argv)
 
@@ -4619,6 +4900,11 @@ def main(argv=None) -> int:
         log(f"phase 12 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "frontend":
+        log(json.dumps({"kernels": {"launches": frontend_phase(smi)}}))
+        log(f"phase 14 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     if args.only == "families":
         cases = check_family_kernels(dev, gpu_name)
         family_launches = families_phase(smi)
@@ -4679,6 +4965,9 @@ def main(argv=None) -> int:
     for k, v in families_phase(smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 13 done at {time.perf_counter() - start:.1f} s")
+    for k, v in frontend_phase(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 14 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

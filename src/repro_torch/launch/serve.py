@@ -45,6 +45,26 @@ model's excepted: its drafts share the expert capacity), and a
 ``speculative: {json}`` line prints the acceptance counters (paged
 only).
 
+``--frontend`` serves the trace through the resilient front end
+(``serve.frontend.ServeFrontend``) on a virtual clock: a bounded
+admission queue (``--max-queue``, ``--policy fifo|priority|edf``), a
+deadline a request (``--deadline-ms``), seeded fault injection
+(``--chaos "seed=0,fault=0.05,victim=0.02"``), typed outcomes for
+whatever is rejected, expired or failed.  It prints an ``outcomes:``
+line and a ``metrics:`` line whose latencies are virtual-clock
+milliseconds (``tick_dt`` of virtual time a pump), not times of the
+device:
+
+``python -m repro_torch.launch.serve --arch qwen2.5-3b --batch-slots 4
+--requests 12 --min-prompt-len 20 --prompt-len 64 --gen 16
+--kv-block-size 16 --chunked-prefill --frontend --workload poisson
+--max-queue 6 --policy edf --deadline-ms 400 --chaos
+"seed=0,fault=0.05,victim=0.02"``
+
+``--workload poisson`` draws Poisson arrivals: 25 requests a second of
+the front end's clock with ``--frontend``, else a mean gap of 2
+scheduler steps; ``burst`` (the default) sends every request at once.
+
 ``--kv-block-size 0`` serves the trace from contiguous per-slot windows
 instead of the paged pool.  ``--batch-slots 0`` serves one static batch
 of ``--batch`` prompts of ``--prompt-len`` tokens through
@@ -76,8 +96,16 @@ from repro_torch import configs
 from repro_torch.config import ModelConfig, PUMConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve import (ContinuousBatchingScheduler, ServeEngine,
+from repro_torch.serve import (ChaosPolicy, ContinuousBatchingScheduler,
+                               ServeEngine, ServeFrontend, VirtualClock,
                                kv_pool, synthetic_workload)
+
+# the front end's metrics line: virtual-clock ms (and tok/s of virtual
+# time) under --frontend, the reference CLI's nine keys
+FRONTEND_METRICS = ("serve.ttft_ms_p50", "serve.ttft_ms_p99",
+                    "serve.itl_ms_p50", "serve.tok_per_s", "serve.shed",
+                    "serve.rejected", "serve.expired", "serve.faults",
+                    "serve.retries")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,6 +158,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "batched forward; the output stays that of "
                          "--speculate-k 0 in every --pum-mode (MoE "
                          "models excepted); requires --kv-block-size")
+    ap.add_argument("--workload", default="burst",
+                    choices=["burst", "poisson"],
+                    help="arrivals of the trace: every request at once, or "
+                         "Poisson (25 a second of the front end's clock "
+                         "with --frontend, else a mean gap of 2 steps)")
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve the trace through the resilient "
+                         "ServeFrontend (admission queue, deadlines, "
+                         "backpressure, typed outcomes) on a virtual "
+                         "clock; requires --batch-slots")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="bounded admission-queue depth for --frontend "
+                         "(overflow is rejected, typed, never raised)")
+    ap.add_argument("--policy", default="fifo",
+                    choices=["fifo", "priority", "edf"],
+                    help="admission-queue order for --frontend")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="every request's deadline for --frontend, in ms "
+                         "of its clock: queued past it = expired, "
+                         "decoding past it = cancelled with a truncated "
+                         "partial")
+    ap.add_argument("--chaos", default="",
+                    help="fault-injection spec for --frontend, e.g. "
+                         "'seed=0,fault=0.05,victim=0.02,stall=0.05,"
+                         "latency_ms=40' (empty or 'off': none)")
     ap.add_argument("--kernel-backend", default="auto",
                     choices=["auto", "cuda", "torch"],
                     help="auto: the CUDA kernels on the card, the plain "
@@ -142,13 +195,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
          ) -> dict:
-    """Serve a burst trace (or, with ``--batch-slots 0``, a static
-    batch); returns the scheduler (the engine), its completions (its
-    tokens) and the measured numbers (for ``chip_smoke.py``).  ``cfg``,
+    """Serve a trace (or, with ``--batch-slots 0``, a static batch);
+    returns the scheduler (the engine), its completions (its tokens) and
+    the measured numbers (for ``chip_smoke.py``); with ``--frontend``
+    the front end, its results and its metrics snapshot in place of the
+    completions.  ``cfg``,
     when given, is served in place of ``--arch``'s config (its mode from
     ``--pum-mode``): a caller's cut of a published config, such as
     Jamba's one period."""
     args = build_parser().parse_args(argv)
+    if args.frontend and args.batch_slots <= 0:
+        raise ValueError("--frontend serves through the scheduler; set "
+                         "--batch-slots > 0")
     dev = resolve_device(args.device)
     if cfg is None:
         cfg = configs.get_reduced(args.arch) if args.reduced \
@@ -174,10 +232,14 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
+    if args.frontend:
+        return serve_frontend(sched, args, n, setup_s)
     reqs = synthetic_workload(n, cfg.vocab_size,
                               min_prompt=args.min_prompt_len,
                               max_prompt=args.prompt_len,
                               max_new=args.gen,
+                              mean_interarrival=0.0
+                              if args.workload == "burst" else 2.0,
                               temperature_choices=(args.temperature,),
                               shared_prefix_len=args.shared_prefix_len,
                               seed=args.seed)
@@ -185,21 +247,13 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     out = sched.run(reqs)
     wall_s = time.perf_counter() - t0
     toks = sum(len(c.tokens) for c in out.values())
-    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu")
+    dev_name = device_name(dev)
     # host wall time from the start of a decode dispatch to the copy of
     # its outputs (a step's one-time build is not in it)
     decode_ms = 1e3 * sched.decode_seconds / max(1, sched.decode_steps)
     graphs, build_s = sched.graphs_captured()
-    chunked = (", chunked" if args.chunked_prefill else "") \
-        + (", prefix-cache" if args.prefix_cache else "")
-    blocks = (f"blocks={sched.num_kv_blocks}" if kv_pool.has_kv_cache(cfg)
-              else "no KV: 0 blocks a request")
-    kv = (f"paged(block={args.kv_block_size}, {blocks}{chunked})"
-          if sched.paged else f"contiguous(max_len={max_len})")
-    print(f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
-          f"mode={args.pum_mode} slots={args.batch_slots} kv={kv} "
-          f"device={dev_name} setup_s={setup_s:.2f}")
+    print(f"{summary(sched, args)} device={dev_name} "
+          f"setup_s={setup_s:.2f}")
     print(f"served {len(out)} requests, {toks} tokens in {wall_s:.3f} s: "
           f"{sched.decode_steps} decode steps, {sched.prefill_chunks} "
           f"prefill {'chunks' if sched.paged else 'prompts'}; programs "
@@ -219,6 +273,83 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
             "tokens": toks, "wall_s": wall_s, "decode_ms": decode_ms,
             "setup_s": setup_s, "graphs": graphs, "build_s": build_s,
             "prefix_stats": stats, "spec_stats": sched.spec_stats()}
+
+
+def device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def summary(sched, args) -> str:
+    """The run's model, mode and KV layout, as the CLI's first line
+    gives them."""
+    cfg = sched.cfg
+    chunked = (", chunked" if args.chunked_prefill else "") \
+        + (", prefix-cache" if args.prefix_cache else "")
+    blocks = (f"blocks={sched.num_kv_blocks}" if kv_pool.has_kv_cache(cfg)
+              else "no KV: 0 blocks a request")
+    kv = (f"paged(block={args.kv_block_size}, {blocks}{chunked})"
+          if sched.paged else f"contiguous(max_len={sched.max_len})")
+    return (f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
+            f"mode={args.pum_mode} slots={args.batch_slots} kv={kv}")
+
+
+def build_frontend(sched, args) -> ServeFrontend:
+    """A front end over ``sched`` on a fresh virtual clock, with the
+    CLI's queue, policy, deadline and chaos (each call a fresh chaos and
+    retry generator: the same arguments replay the same storm)."""
+    chaos = ChaosPolicy.parse(args.chaos) if args.chaos else None
+    return ServeFrontend(
+        sched, clock=VirtualClock(), max_queue=args.max_queue,
+        policy=args.policy, default_deadline_ms=args.deadline_ms,
+        chaos=chaos if chaos is not None and chaos.enabled else None)
+
+
+def serve_frontend(sched, args, n: int, setup_s: float) -> dict:
+    """Serve the trace through the resilient front end on a virtual
+    clock, as the reference CLI does: overload and faults come back
+    as typed outcomes, and the run ends with a metrics snapshot.  Its
+    latencies are virtual-clock milliseconds, ``tick_dt`` a pump: a
+    function of the trace, not a time of the device."""
+    fe = build_frontend(sched, args)
+    # Poisson arrivals at 25 requests a second of the front end's clock
+    reqs = synthetic_workload(
+        n, sched.cfg.vocab_size, min_prompt=args.min_prompt_len,
+        max_prompt=args.prompt_len, max_new=args.gen,
+        poisson_rate=0.0 if args.workload == "burst" else 25.0,
+        temperature_choices=(args.temperature,),
+        shared_prefix_len=args.shared_prefix_len, seed=args.seed)
+    t0 = time.perf_counter()
+    handles = fe.serve_trace(reqs)
+    if sched.device.type == "cuda":
+        torch.cuda.synchronize(sched.device)
+    wall_s = time.perf_counter() - t0
+    res = fe.results(handles)
+    counts: dict[str, int] = {}
+    for r in res.values():
+        counts[r.status] = counts.get(r.status, 0) + 1
+    toks = sum(len(r.tokens) for r in res.values())
+    print(f"{summary(sched, args)} device={device_name(sched.device)} "
+          f"setup_s={setup_s:.2f}")
+    print(f"frontend(policy={args.policy}, queue={args.max_queue}"
+          f"{', chaos' if fe.chaos is not None else ''}) served "
+          f"{len(res)} requests ({toks} tokens) in {wall_s:.3f} s (wall, "
+          f"builds included): {sched.decode_steps} decode steps, "
+          f"{sched.prefill_chunks} prefill "
+          f"{'chunks' if sched.paged else 'prompts'}; programs "
+          f"{sched.step_programs()}")
+    print("outcomes:", " ".join(f"{k}={v}"
+                                for k, v in sorted(counts.items())))
+    snap = fe.metrics.snapshot()
+    print("metrics:", json.dumps({k: round(snap[k], 2)
+                                  for k in FRONTEND_METRICS}),
+          f"(virtual clock: ms and tok/s of {fe.cfg.tick_dt} s a pump, "
+          f"not times of the device)")
+    if args.prefix_cache:
+        print("prefix-cache:", json.dumps(sched.prefix_stats()))
+    return {"scheduler": sched, "requests": reqs, "frontend": fe,
+            "handles": handles, "results": res, "snapshot": snap,
+            "outcomes": counts, "tokens": toks, "wall_s": wall_s,
+            "setup_s": setup_s, "args": args}
 
 
 def static_batch(cfg, params, args, dev: torch.device, max_len: int) -> dict:
@@ -241,8 +372,7 @@ def static_batch(cfg, params, args, dev: torch.device, max_len: int) -> dict:
         torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     toks = args.batch * args.gen
-    dev_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu")
+    dev_name = device_name(dev)
     print(f"arch={cfg.name} mode={args.pum_mode} "
           f"decode={'loop' if args.loop else 'scan'} device={dev_name} "
           f"generated {toks} tokens in {wall_s:.2f}s "

@@ -46,11 +46,7 @@ from repro_torch.kernels import registry
 from repro_torch.models import lm
 from repro_torch.serve import prng
 from repro_torch.serve.compiled import CompiledStep
-
-
-class RequestTooLarge(ValueError):
-    """The request's window exceeds the engine's ``max_len`` or its KV
-    blocks exceed the whole pool: it can never be served here."""
+from repro_torch.serve.errors import RequestTooLarge
 
 
 def make_decode_step(cfg: ModelConfig, kv_len: int | None = None):

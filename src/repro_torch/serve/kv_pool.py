@@ -52,21 +52,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.paged_attention.ref import (paged_write_cells,
                                                      write_cells)
 from repro_torch.models import transformer
+from repro_torch.serve.errors import (BlockAllocatorError,  # noqa: F401
+                                      BlockNotLive, BlockOutOfRange)
 
 TRASH_BLOCK = 0
-
-
-class BlockAllocatorError(ValueError):
-    """Allocator misuse: the caller's bookkeeping lost track of
-    ownership."""
-
-
-class BlockNotLive(BlockAllocatorError):
-    """``release``/``acquire`` of a block with no live reference."""
-
-
-class BlockOutOfRange(BlockAllocatorError):
-    """A block id the pool never owned (the trash block included)."""
 
 
 def blocks_needed(prompt_len: int, max_tokens: int, block_size: int) -> int:

@@ -135,9 +135,23 @@ mixers), the MoE family and the hybrid family (Mamba and attention
 mixers, dense and routed FFNs) at any temperature, each request with
 its own seed, and its draws are the reference's (``serve.prng``
 reproduces its threefry keys), with or without the prefix cache and
-speculative decoding.  Tensor parallelism and the fault-injection hooks
-of the JAX package are not ported yet; ``mesh`` raises
-``NotImplementedError``; ``cancel`` and ``drain`` are ported.
+speculative decoding.  Tensor parallelism is not ported yet: ``mesh``
+raises ``NotImplementedError``.
+
+Fault tolerance: ``tick(step, fault_hook)`` calls ``fault_hook("chunk",
+rid)`` before each prefill chunk's dispatch (before a pending
+copy-on-write too) and ``fault_hook("decode", None)`` once before the
+decode or spec step; the hook may raise (``serve.chaos`` raises
+``FaultInjected``).  Nothing of the dispatch it guards has moved then:
+no step input is staged, and ``_cur_tok``, ``_keys``, the events, the
+block table and the prefix registration are as they were, so the caller
+can cancel the victim (``cancel`` frees its slot and blocks, the
+reserved copy-on-write block included) and tick again.  The chunks of
+earlier slots in that tick have landed; their events, and the
+completions of requests that finished at their first token, come out
+with the next tick.  ``serve.frontend.ServeFrontend`` drives the
+scheduler this way, with ``start_request``, ``cancel`` and ``drain``.
+The errors are the reference's hierarchy (``serve.errors``).
 """
 from __future__ import annotations
 
@@ -153,22 +167,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serve import kv_pool, prng, spec
 from repro_torch.serve.compiled import CompiledStep
-from repro_torch.serve.engine import (RequestTooLarge, ServeEngine,
-                                      make_decode_step, make_verify_step,
-                                      sample_token)
-
-
-class InvalidRequest(ValueError):
-    """A malformed request (empty prompt, max_tokens < 1 or a duplicate
-    rid)."""
-
-
-class PoolExhausted(RuntimeError):
-    """No slot or no KV blocks can fund the request right now."""
-
-
-class SchedulerStalled(RuntimeError):
-    """The serve loop exceeded its dispatch budget without draining."""
+from repro_torch.serve.engine import (ServeEngine, make_decode_step,
+                                      make_verify_step, sample_token)
+from repro_torch.serve.errors import (InvalidRequest, PoolExhausted,
+                                      RequestTooLarge, SchedulerStalled)
 
 
 @dataclasses.dataclass
@@ -176,7 +178,14 @@ class Request:
     """One generation request.  ``arrival`` is in scheduler steps;
     ``eos_id < 0`` disables EOS; ``max_tokens`` counts every generated
     token, the EOS included; ``seed`` keys the draws at temperature > 0
-    (``prng_key(seed)``, as the reference's ``PRNGKey(seed)``)."""
+    (``prng_key(seed)``, as the reference's ``PRNGKey(seed)``).
+
+    The last three fields are the front end's, and the scheduler ignores
+    them: ``arrival_time`` is the arrival in seconds (a Poisson trace for
+    ``ServeFrontend.serve_trace``), ``priority`` orders the admission
+    queue under the ``priority`` policy (higher first), and
+    ``deadline_ms`` is the request's latency budget (queued past it:
+    expired; decoding past it: cancelled with a partial completion)."""
     prompt: Sequence[int]
     max_tokens: int
     temperature: float = 0.0
@@ -184,6 +193,9 @@ class Request:
     seed: int = 0
     arrival: int = 0
     rid: int | None = None
+    arrival_time: float | None = None
+    priority: int = 0
+    deadline_ms: float | None = None
 
 
 @dataclasses.dataclass
@@ -540,6 +552,10 @@ class ContinuousBatchingScheduler:
                     root=f"{self.cfg!r}/bs={self.block_size}",
                     max_snapshots=self._max_snapshots)
         self._prefills: dict[int, _PrefillJob] = {}
+        # completions of requests that finished at their first token,
+        # held until the tick returns (past a fault raised in a later
+        # slot's chunk, to the next tick)
+        self._finished: dict[int, Completion] = {}
         self._cur_tok = np.zeros((b, 1), np.int32)
         self._cache_index = np.zeros((b,), np.int32)
         # each slot's key (uint32 bits as int32) and temperature
@@ -618,6 +634,17 @@ class ContinuousBatchingScheduler:
             return total
         n, _, cow = self._prefix_peek(req)
         return total - n + cow
+
+    @property
+    def num_free_slots(self) -> int:
+        """Slots neither decoding nor mid-prefill."""
+        return sum(not self._active[s] and self._slot_req[s] is None
+                   for s in range(self.num_slots))
+
+    @property
+    def total_blocks(self) -> int:
+        """The pool's KV blocks (0 on contiguous windows)."""
+        return self.num_kv_blocks if self.paged else 0
 
     @property
     def free_blocks(self) -> int:
@@ -1028,14 +1055,22 @@ class ContinuousBatchingScheduler:
         overwrites them."""
         return {k: p.aux[0] for k, p in self._programs.items() if p.aux}
 
-    def _feed_prefills(self, step: int, out: dict[int, Completion]) -> int:
+    def _feed_prefills(self, step: int, out: dict[int, Completion],
+                       fault_hook=None) -> int:
         """Feed every mid-prefill slot one chunk (after a pending
         copy-on-write); a slot whose prompt is complete registers its
         prefix blocks and draws its first token.  Returns the
-        dispatches."""
+        dispatches.
+
+        ``fault_hook("chunk", rid)`` runs before each slot's chunk and
+        its copy-on-write; a raise leaves that slot's job, its table row
+        (still on the shared block, which ``shared_cols`` protects) and
+        its reserved block as they were, for ``cancel`` to clean up."""
         dispatches = 0
         for slot in sorted(self._prefills):
             pf = self._prefills[slot]
+            if fault_hook is not None:
+                fault_hook("chunk", pf.req.rid)
             if pf.cow_col >= 0:
                 # a fully cached prompt: copy the shared last block into
                 # the reserved private one, repoint the column, and drop
@@ -1160,14 +1195,21 @@ class ContinuousBatchingScheduler:
                        bool(done[slot]), step, out)
 
     @torch.inference_mode()
-    def tick(self, step: int = 0) -> TickResult:
+    def tick(self, step: int = 0, fault_hook=None) -> TickResult:
         """One iteration: a chunk for every mid-prefill slot, then the
         slot-wise decode step (or, with ``speculate_k``, the spec step)
-        if any slot is live."""
-        out: dict[int, Completion] = {}
-        dispatches = self._feed_prefills(step, out)
+        if any slot is live.
+
+        ``fault_hook(point, rid)`` runs before each dispatch (``"chunk"``
+        with the slot's rid, ``"decode"`` with None) and may raise:
+        nothing of that dispatch has moved then, so the caller can cancel
+        a victim and tick again."""
+        out = self._finished
+        dispatches = self._feed_prefills(step, out, fault_hook)
         decoded = False
         if self._active.any():
+            if fault_hook is not None:
+                fault_hook("decode", None)
             was_active = self._active.copy()
             if self.speculate_k > 0:
                 self._decode_spec(step, out, was_active)
@@ -1176,6 +1218,7 @@ class ContinuousBatchingScheduler:
             decoded = True
             dispatches += 1
         events, self._events = self._events, []
+        self._finished = {}
         return TickResult(events, out, dispatches, decoded)
 
     def _slot_of(self, rid: int) -> int | None:
@@ -1274,7 +1317,9 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
                        max_new: int = 16, mean_interarrival: float = 0.0,
                        temperature_choices: Sequence[float] = (0.0,),
                        shared_prefix_len: int = 0,
-                       seed: int = 0) -> list[Request]:
+                       seed: int = 0, poisson_rate: float = 0.0,
+                       priority_choices: Sequence[int] = (0,),
+                       deadline_ms: float | None = None) -> list[Request]:
     """A seeded trace: prompt lengths uniform in ``[min_prompt,
     max_prompt]``, ``max_new`` tokens each, no EOS, exponential
     inter-arrival gaps in scheduler steps (0 = a burst), and a
@@ -1282,23 +1327,43 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
     request.  The temperatures and seeds are drawn after everything
     else, so the prompts and arrivals do not depend on them.
 
+    ``poisson_rate`` (requests a second; it overrides
+    ``mean_interarrival``) draws a Poisson arrival process for the front
+    end: ``arrival_time`` carries each arrival in seconds, and
+    ``arrival`` its integer shadow, so the same trace still runs through
+    ``ContinuousBatchingScheduler.run``.  ``priority_choices`` stamps a
+    priority drawn uniformly on each request, after every other draw,
+    and ``deadline_ms`` the same deadline on all of them.  At their
+    defaults a trace is the one this function gave before they existed.
+
     ``shared_prefix_len > 0`` models the system-prompt and multi-turn
     traffic the prefix cache serves, with the reference's semantics: one
     prefix of that length is drawn, and a prompt of ``plen`` tokens is
     ``prefix[:plen]`` (a fully cached prompt where the prefix is whole
     blocks), or the prefix followed by the last ``plen -
     shared_prefix_len`` tokens drawn for it.  The prefix is drawn after
-    everything else, so the trace at 0 is unchanged."""
+    everything else, so the trace at 0 is unchanged.
+
+    The draws are not the reference's: this trace has no EOS (the
+    reference gives a share of its requests a random EOS id), a fixed
+    ``max_new`` tokens a request (the reference draws 1..``max_new``),
+    and its own order of draws.  The parity tests build their traces
+    with the reference's function and carry them across field for
+    field."""
     rng = np.random.default_rng(seed)
     t = 0.0
     reqs = []
     for i in range(n_requests):
-        if mean_interarrival > 0:
+        if poisson_rate > 0:
+            t += rng.exponential(1.0 / poisson_rate)
+        elif mean_interarrival > 0:
             t += rng.exponential(mean_interarrival)
         plen = int(rng.integers(min_prompt, max_prompt + 1))
         reqs.append(Request(
             prompt=rng.integers(0, vocab_size, size=plen).tolist(),
-            max_tokens=max_new, arrival=int(t), rid=i))
+            max_tokens=max_new, arrival=int(t), rid=i,
+            arrival_time=float(t) if poisson_rate > 0 else None,
+            deadline_ms=deadline_ms))
     temps = rng.choice(list(temperature_choices), size=n_requests)
     seeds = rng.integers(0, 2**31 - 1, size=n_requests)
     if shared_prefix_len > 0:
@@ -1307,8 +1372,10 @@ def synthetic_workload(n_requests: int, vocab_size: int, *,
         reqs = [dataclasses.replace(r, prompt=prefix[:len(r.prompt)]
                                     + list(r.prompt[shared_prefix_len:]))
                 for r in reqs]
-    return [dataclasses.replace(r, temperature=float(temp), seed=int(s))
-            for r, temp, s in zip(reqs, temps, seeds)]
+    prios = rng.choice(list(priority_choices), size=n_requests)
+    return [dataclasses.replace(r, temperature=float(temp), seed=int(s),
+                                priority=int(pr))
+            for r, temp, s, pr in zip(reqs, temps, seeds, prios)]
 
 
 def oracle_completion(engine: ServeEngine, req: Request) -> list[int]:

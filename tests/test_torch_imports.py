@@ -6,9 +6,15 @@
     CUDA raises instead of running on the CPU;
   * the serving and AES CLIs run end to end when the CPU is asked for:
     the scheduler over paged blocks (with and without the prefix cache)
-    or contiguous windows, and the static batch.
+    or contiguous windows, the static batch, and the resilient front end
+    under seeded chaos;
+  * a trace of ``synthetic_workload`` at its defaults is the one the
+    function gave before the front end's fields existed (pinned by the
+    SHA-256 of its fields).
 """
 import ast
+import dataclasses
+import hashlib
 import json
 import pathlib
 
@@ -50,6 +56,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for f in files[:-1]}
+    assert names >= {"serve/errors.py", "serve/policies.py",
+                     "serve/chaos.py", "serve/frontend.py",
+                     "ft/__init__.py", "ft/monitor.py", "ft/preemption.py"}
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -87,6 +98,8 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         ContinuousBatchingScheduler(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--requests", "1", "--frontend"])
     pt, key = np.zeros((2, 16), np.uint8), np.zeros(16, np.uint8)
     for entry in (aes_app.aes_encrypt, aes_app.aes_decrypt,
                   aes_app.aes_encrypt_dce):
@@ -229,6 +242,92 @@ def test_serve_cli_static_batch(temperature, arch, capsys):
     assert scan["engine"].scan_programs() == {(3, 7, float(temperature)):
                                               1}
     assert loop["engine"].scan_programs() == {}
+
+
+@pytest.mark.parametrize("layout", [["--kv-block-size", "4",
+                                     "--chunked-prefill"],
+                                    ["--kv-block-size", "0"]],
+                         ids=["paged", "contiguous"])
+def test_serve_cli_frontend_under_chaos(layout, capsys):
+    """``--frontend --workload poisson --chaos ...``: every request
+    resolves with a typed status, the ``outcomes:`` and ``metrics:``
+    lines carry the results and the snapshot (virtual-clock ms), every
+    ``ok`` completion equals its solo oracle, and the pool ends clean."""
+    res = serve.main(["--reduced", "--device", "cpu", "--batch-slots", "2",
+                      "--requests", "8", "--min-prompt-len", "2",
+                      "--prompt-len", "9", "--gen", "5", "--frontend",
+                      "--workload", "poisson", "--max-queue", "4",
+                      "--policy", "edf", "--deadline-ms", "150",
+                      "--chaos", "seed=0,fault=0.05,victim=0.02,chunk=0.1,"
+                      "stall=0.05"] + layout)
+    lines = capsys.readouterr().out.splitlines()
+    outcomes = next(ln for ln in lines if ln.startswith("outcomes: "))
+    counts = dict(kv.split("=") for kv in outcomes.split()[1:])
+    assert {k: int(v) for k, v in counts.items()} == res["outcomes"]
+    assert sum(res["outcomes"].values()) == 8 and res["outcomes"]["ok"] > 0
+    metrics = next(ln for ln in lines if ln.startswith("metrics: "))
+    snap, end = json.JSONDecoder().raw_decode(metrics[len("metrics: "):])
+    assert list(snap) == list(serve.FRONTEND_METRICS)
+    assert "virtual clock" in metrics[len("metrics: ") + end:]
+    assert snap == {k: round(res["snapshot"][k], 2)
+                    for k in serve.FRONTEND_METRICS}
+    sched, reqs = res["scheduler"], res["requests"]
+    assert all(r.arrival_time is not None and r.deadline_ms is None
+               for r in reqs)
+    assert sorted(res["results"]) == [r.rid for r in reqs]
+    for r in reqs:
+        out = res["results"][r.rid]
+        assert out.status in ("ok", "expired", "rejected", "failed",
+                              "cancelled")
+        want = oracle_completion(sched.engine, r)
+        if out.ok:
+            assert out.tokens == want
+        else:
+            assert out.error is not None
+            assert out.tokens == want[:len(out.tokens)]
+    assert sched.in_flight() == [] and sched.num_free_slots == 2
+    assert not sched.paged or sched._alloc.live_blocks == 0
+    with pytest.raises(ValueError, match="--batch-slots > 0"):
+        serve.main(["--reduced", "--device", "cpu", "--batch-slots", "0",
+                    "--frontend"])
+
+
+# SHA-256 of (prompt, max_tokens, temperature, eos_id, seed, arrival, rid)
+# of each request, from the function before the front end's fields
+DEFAULT_TRACES = [
+    (dict(n_requests=6, vocab_size=151936, min_prompt=20, max_prompt=64,
+          max_new=16, seed=0),
+     "37892cd684496b94c98aec43516c9b075028a3706aa60971bd9435b9459700f4"),
+    (dict(n_requests=5, vocab_size=256, min_prompt=4, max_prompt=12,
+          max_new=4, shared_prefix_len=8, seed=0),
+     "64499113f7a1f626a42ede92347ea2e9507b21505721bd09980c1afd7619b06d"),
+    (dict(n_requests=4, vocab_size=1000, max_prompt=9, max_new=5,
+          mean_interarrival=2.0, temperature_choices=(0.0, 0.7, 1.0),
+          seed=3),
+     "a1972c8ddec73cfdd90d7eef69815d8268a90eb2b902a557ece7f9a1ee99128a"),
+]
+
+
+@pytest.mark.parametrize("kw,digest", DEFAULT_TRACES,
+                         ids=["serve-args", "shared-prefix", "interarrival"])
+def test_synthetic_workload_default_traces_unchanged(kw, digest):
+    from repro_torch.serve import synthetic_workload
+    reqs = synthetic_workload(**kw)
+    rows = [(list(r.prompt), r.max_tokens, r.temperature, r.eos_id, r.seed,
+             r.arrival, r.rid) for r in reqs]
+    assert hashlib.sha256(json.dumps(rows).encode()).hexdigest() == digest
+    assert all(r.arrival_time is None and r.priority == 0
+               and r.deadline_ms is None for r in reqs)
+    # the front end's fields come after, and move none of the draws above
+    more = synthetic_workload(**kw, priority_choices=(0, 3),
+                              deadline_ms=50.0)
+    assert [dataclasses.replace(r, priority=0, deadline_ms=None)
+            for r in more] == reqs
+    assert {r.priority for r in more} <= {0, 3}
+    poisson = synthetic_workload(**kw, poisson_rate=25.0)
+    times = [r.arrival_time for r in poisson]
+    assert times == sorted(times) and times[0] > 0
+    assert all(r.arrival == int(r.arrival_time) for r in poisson)
 
 
 def test_aes_cli_on_the_cpu_when_asked(capsys):

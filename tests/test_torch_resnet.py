@@ -199,6 +199,22 @@ def test_agreement_at_zero_noise_equals_jax():
     assert got >= 0.75                # the JAX test's bound
 
 
+@pytest.fixture
+def one_thread():
+    """Run a test on one intra-op thread, then restore the count.  The
+    analog-noise path issues thousands of tiny ops a forward (one ADC
+    quantisation a bit line and slice), whose thread-pool barriers stall
+    when several test workers share the cores: 1.6 s alone at one
+    thread, 7.5 s at eight, minutes under a six-worker run.  The
+    numbers are the same either way (each checked bit for bit against
+    itself)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_noise_follows_the_generator():
     """Programming noise drawn from the generator: the same seed gives
     the same logits bit for bit, another seed others, and noise on
@@ -218,6 +234,7 @@ def test_noise_follows_the_generator():
     assert torch.isfinite(a).all()
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_agreement_under_noise_on_the_cpu():
     """The entry point draws params, images and noise from one seeded
     generator: the same seed gives the same agreement."""
