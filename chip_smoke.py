@@ -123,7 +123,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sampler's share of it; greedy decode ms/step of phases 4-5b beside
    those recorded before the decode graph held the sampler (PERF.md).
 9. contiguous — the reference's default serving paths, in ``pum`` and
-   ``int8``, on Qwen2.5-3B at full width cut to CONTIG_LAYERS = 12 of
+   ``int8``, on Qwen2.5-3B at full width cut to CONTIG_LAYERS = 6 of
    its 36 layers (phases 4-8 serve all 36): one layer's online softmax (``_chunked_attention``) at a
    4096-token prompt's shapes against the plain composition, within the
    bound derived at CHUNK_ATTN_REL; K1 and K2 alone at M = 4096 (a
@@ -147,8 +147,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    peak memory, and a decode replay's device ms beside the paged
    scheduler's on the same trace, timed in turns (paged, contiguous,
    contiguous, paged).
-10. xlstm — xLSTM-350M at full width and depth (18 mLSTM + 6 sLSTM
-   layers, random weights), in ``pum`` and ``int8``: the CLI on phase
+10. xlstm — xLSTM-350M at full width cut to 12 of its 24 layers (9
+   mLSTM + 3 sLSTM, ``XLSTM_SERVE_LAYERS``; random weights), in
+   ``pum`` and ``int8``: the CLI on phase
    4's trace paged (blocks of 16, chunked prefill; no KV, so 0 blocks a
    request) and with ``--kv-block-size 0``, then on both schedulers
    phase 8's six sampled requests (16 tokens each in ``pum``, 8 in
@@ -158,7 +159,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    second run builds nothing; one decode program; graphs == eager in
    tokens and launches; each recurrent step built and called once
    leaves the state one eager call leaves (fresh schedulers, step by
-   step); 120 MVM launches a step, chunk or prompt and no K3; states
+   step); 60 MVM launches a step, chunk or prompt and no K3; states
    and every step's last logits finite; backend parity; then the static
    batch (scan == ``--loop``, t = 0).  Prints decode ms/step (graphs and
    eager), tokens/s, a decode replay's device ms with K1's or K2's
@@ -312,8 +313,35 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
    resolves, survivors equal the fault-free run, launches exact.  The
    virtual-clock milliseconds of (a) and (c) are functions of the
    trace, not times of the card.
-15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-14) must have launched there;
+15. train — the training path (``train/``, ``optim/``, ``ckpt/``,
+   ``data/``, the straight-through gradient of ``pum_linear``) under
+   deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set for the
+   whole run, before the CUDA context).  Phase 3 first holds K2's
+   unpacked entry (``bitslice_mvm``, planes sliced per call) at
+   Qwen2.5-3B's four projection shapes at M = 512 (B = 4 x S = 128), in
+   ``pum`` (4 planes) and ``int8`` (one), bit for bit and timed beside
+   its bound and ``torch._int_mm`` (``train_shapes`` of K2's row).
+   Then, at Qwen2.5-3B's widths cut to 2 layers in ``pum`` and ``int8``:
+   a loss and its gradients launch exactly 7 K2 a layer forward and 7
+   recomputed (remat), nothing else; the ``torch`` backend launches
+   nothing and gives the same loss and gradients bit for bit (its
+   recomputation runs on the backward's own thread); remat off launches
+   7 a layer, bit for bit the same; two microbatches equal one batch
+   within MICRO_TOL (``bf16`` mode, f32 activations).  Then Qwen2.5-3B
+   at full width and depth through ``Trainer`` in ``pum``, ``int8`` and
+   ``bf16``, six steps on one repeated batch: exactly 504 K2 launches a
+   quantised step and none in ``bf16``, finite losses falling, finite
+   params; prints step ms (the median after two), tokens/s, peak
+   memory, the allocator's retries, and a profiled step's device ms and
+   K2's ms in it (with ``--profile-host`` the host's busiest operators
+   too, some 20 s a mode).  Then the reduced
+   config's run stopped by the preemption flag after 3 of 6 steps and
+   resumed from its checkpoint (a temporary directory the phase
+   removes): params and optimiser state bit-equal to an unbroken run;
+   then OLMoE-1B-7B at full width cut to 2 of 16 layers: one step with
+   the aux losses and the router's gradient finite and non-zero.
+16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-15) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
@@ -323,7 +351,9 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
    (``hybrid_shapes``), K3's at the MoE head layouts (``moe_shapes``),
    at Jamba's (``hybrid_shapes``) and at the verify shape
    (``verify_shape``); K1's, K2's and K3's at phase 13's shapes
-   (``family_shapes``).  The launches count the spec runs' verify steps.
+   (``family_shapes``); K2's at the training shapes (``train_shapes``).
+   The launches count the spec runs' verify steps and phase 15's
+   full-width training steps.
 
 ``--only kernels`` stops after phase 3 (bring-up of a kernel change);
 ``--only cnn`` runs phases 1, 2 and 7 alone, ``--only contiguous``
@@ -331,13 +361,15 @@ phases 1, 2 and 9, ``--only xlstm`` phases 1, 2, phase 3's xLSTM
 shapes and 10, ``--only moe`` phases 1, 2, phase 3's MoE shapes and
 11, ``--only hybrid`` phases 1, 2, phase 3's Jamba shapes and 12,
 ``--only families`` phases 1, 2, phase 3's phase-13 shapes and 13,
-``--only frontend`` phases 1, 2 and 14.
+``--only frontend`` phases 1, 2 and 14, ``--only train`` phases 1, 2,
+phase 3's training shapes and 15.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -2448,9 +2480,10 @@ def sampled_phase(greedy: dict[str, dict], smi: str) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 # phase 9 serves Qwen2.5-3B at full width cut to CONTIG_LAYERS of its 36
-# layers (phases 4-8 serve all 36; every gate of phase 9 holds at any
-# depth), which pays for phase 13
-CONTIG_LAYERS = 12
+# layers (phases 4-8 serve all 36; every gate of phase 9 compares runs
+# on one backend, bit for bit, and holds at any depth): 12 paid for
+# phase 13, 6 for phase 15 on a slow host (1103 s at 12)
+CONTIG_LAYERS = 6
 # phase 4's trace served from contiguous windows: the CLI's defaults
 # but for the KV layout (no blocks, so no chunked prefill)
 CONTIG_ARGS = [a for a in SERVE_ARGS if a != "--chunked-prefill"]
@@ -2881,6 +2914,16 @@ XLSTM_STATIC_ARGS = ["--arch", "xlstm-350m"] + STATIC_ARGS[2:]
 XLSTM_LAYERS = 24
 XLSTM_MVM = {(1024, 6144): 18, (1024, 4): 36, (1024, 2048): 42,
              (2048, 1024): 24}
+# phase 10 serves xLSTM-350M at full width cut to 12 of its 24 layers
+# (9 mLSTM + 3 sLSTM, the same period of 4), so that the script stays
+# well inside its time limit on a slow host (PR 30: 1092 s uncut there)
+XLSTM_SERVE_LAYERS = 12
+
+
+def xlstm_cut():
+    from repro_torch import configs
+    return configs.get("xlstm-350m").replace(num_layers=XLSTM_SERVE_LAYERS)
+
 # Qwen2.5-3B's KV bytes a slot at the same window, for comparison: 36
 # layers x K and V x 2 KV heads x 128 lanes x 2 bytes a position
 QWEN_KV_BYTES_A_POSITION = 36 * 2 * 2 * 128 * 2
@@ -3039,7 +3082,7 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
     for layout, args in (("paged", XLSTM_ARGS),
                          ("contiguous", XLSTM_CONTIG_ARGS)):
         registry.reset_launches()
-        res = serve.main(args + ["--pum-mode", mode])
+        res = serve.main(args + ["--pum-mode", mode], cfg=xlstm_cut())
         torch.cuda.synchronize()
         counts = dict(registry.LAUNCHES)
         for k, v in counts.items():
@@ -3148,7 +3191,7 @@ def xlstm_run(mode: str, smi: str) -> dict[str, int]:
                 launches[k] = launches.get(k, 0) + v
     del params
     for k, v in static_phase(mode, smi, XLSTM_STATIC_ARGS,
-                             temps=(0.0,)).items():
+                             temps=(0.0,), cfg=xlstm_cut()).items():
         launches[k] = launches.get(k, 0) + v
     gc.collect()
     torch.cuda.empty_cache()
@@ -4796,6 +4839,435 @@ def frontend_phase(smi: str) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ     # M of every projection of a step
+TRAIN_MODES = ("pum", "int8", "bf16")
+TRAIN_STEPS = 6          # a mode's run on one repeated batch
+TRAIN_WARMUP = 2         # steps left out of the median step time
+TRAIN_LR = 1e-3
+TRAIN_CUT = 2            # layers of Qwen2.5-3B in the parity checks
+# bits a plane of K2's unpacked entry, by mode: pum slices the weight
+# into 4 planes of 2 bits, int8 keeps it one plane of 8
+TRAIN_SLICING = {"pum": 2, "int8": 8}
+PROJ_PER_LAYER = sum(MVM_PER_LAYER.values())          # 7
+# two microbatches against one batch (f32 activations, bf16 mode: no
+# quantiser to flip): every gradient element within this share of the
+# largest, summation-order round-off of sums over 256 and 512 rows
+MICRO_TOL = 1e-4
+
+
+def check_train_mvm(dev, gpu_name: str) -> list[dict]:
+    """K2's unpacked entry (``bitslice_mvm``: the int32 weight sliced
+    into planes per call, as the raw-weight forwards of ``pum`` and
+    ``int8`` call it in training) at Qwen2.5-3B's four projection shapes
+    at M = TRAIN_ROWS, in both slicings: bit for bit against its plain
+    version, two calls bit-equal, timed (the weight rotated past the L2
+    cache, as 36 layers' weights pass between two uses of one) beside
+    its bound and ``torch._int_mm`` on the same int8 operands.  The
+    inputs are what the forward hands it: int32 activation codes and
+    the int32 quantised weight."""
+    import torch
+    from repro_torch.kernels.bitslice_mvm import ops
+    bw, _, int8_rate = peaks(gpu_name)
+    g = torch.Generator(device=dev).manual_seed(15)
+    m = TRAIN_ROWS
+    rows = []
+    step = {mode: [0.0, 0.0] for mode in TRAIN_SLICING}
+    for (k, n), per_layer in MVM_PER_LAYER.items():
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int32)
+        wq = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        rw = Rotating(lambda: wq.clone(), 4 * wq.numel())
+        xl, wl = x.to(torch.int8), wq.to(torch.int8)
+        rl = Rotating(lambda: wl.clone(), wl.numel())
+        lib = device_ms(lambda: torch._int_mm(xl, rl.next()), iters=10)
+        for mode, bps in TRAIN_SLICING.items():
+            def call(backend, w=None, bps=bps):
+                return ops.bitslice_mvm(x, wq if w is None else w,
+                                        weight_bits=8, bits_per_slice=bps,
+                                        backend=backend)
+
+            got, want = call("cuda"), call("torch")
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want) or not deterministic(
+                    lambda: call("cuda")):
+                raise AssertionError(f"bitslice_mvm (unpacked, {mode}) at "
+                                     f"M={m} K={k} N={n}: max|diff| {err}, "
+                                     f"or two calls differ")
+            t = device_ms(lambda: call("cuda", rw.next()), iters=10)
+            p = device_ms(lambda: call("torch", rw.next()), iters=3, reps=2)
+            s = 4 if bps == 2 else 1
+            by_bytes = (4 * m * k + 4 * k * n + 4 * m * n) / bw * 1e3
+            by_ops = mvm_ops(m, k, n) / int8_rate * 1e3
+            bound = max(by_bytes, by_ops)
+            launches = 2 * LAYERS * per_layer
+            step[mode][0] += launches * t
+            step[mode][1] += launches * bound
+            log(f"train mvm {mode} M={m} K={k} N={n} S={s}: exact, two "
+                f"calls bit-equal | kernel {t:.4f} ms (plain {p:.4f}, "
+                f"bound {bound:.4f}, {share(bound, t)} of bound) | "
+                f"_int_mm {lib:.4f} ms | {launches} launches a step")
+            rows.append(dict(shape=f"{mode} M={m} K={k} N={n} S={s}",
+                             launches_per_step=launches, max_abs_err=err,
+                             ms=t, plain_ms=p, bound_ms=bound,
+                             bound_by="bytes" if by_bytes >= by_ops
+                             else "operations", library_ms=lib))
+        del x, wq, rw, rl, xl, wl
+    for mode, (ms, bound) in step.items():
+        log(f"train mvm {mode}: K2 over a step's "
+            f"{2 * LAYERS * PROJ_PER_LAYER} launches (forward and remat) of "
+            f"Qwen2.5-3B at M={m}, summed from the calls above: {ms:.2f} ms "
+            f"(bound {bound:.2f} ms)")
+    return rows
+
+
+def step_profile(run, host: bool = False) -> tuple:
+    """``run()`` under ``torch.profiler``: (device us by kernel name, and
+    with ``host`` the host's top operators by self time, else None).
+    The host's side costs the profiler some 20 s a full-width step, the
+    card's alone a few."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if host else [])
+    with profile(activities=activities) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name: collections.Counter[str] = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] += evt.time_range.elapsed_us()
+    if not host:
+        return by_name, None
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return by_name, ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.1f} "
+                              f"ms x {e.count}" for e in ops[:8])
+
+
+def train_cfg(mode: str, layers: int | None = None, arch="qwen2.5-3b",
+              **kw):
+    from repro_torch import configs
+    from repro_torch.config import PUMConfig
+    cfg = configs.get(arch)
+    return cfg.replace(pum=PUMConfig(mode=mode),
+                       num_layers=layers or cfg.num_layers, **kw)
+
+
+def fixed_batch(cfg, dev, seed: int = 0) -> dict:
+    """``SyntheticTokens``' first batch of B x S tokens, on the card."""
+    import torch
+    from repro_torch.data import SyntheticTokens
+    toks = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed).batch(0)
+    return {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}
+
+
+def grads_equal(a, b) -> bool:
+    """Loss metrics and gradient trees of two ``value_and_grad`` calls
+    equal bit for bit."""
+    import torch
+    from repro_torch.tree import leaves
+    return (a[0].keys() == b[0].keys()
+            and all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and all(torch.equal(x, y) for x, y in zip(leaves(a[1]),
+                                                      leaves(b[1]))))
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made)."""
+    import torch
+    from repro_torch.kernels import registry
+    registry.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(registry.LAUNCHES)
+
+
+def train_parity(dev) -> None:
+    """At Qwen2.5-3B's widths cut to TRAIN_CUT layers: a quantised loss
+    and its gradients (remat on) launch exactly 7 K2 a layer in the
+    forward and 7 more in the recomputation, and nothing else; the
+    ``torch`` backend (the plain K2, the recomputation in the backward's
+    own thread included) launches nothing and gives the same loss and
+    gradients bit for bit; remat off launches 7 a layer and gives them
+    bit for bit too; two microbatches equal one batch within MICRO_TOL."""
+    import torch
+    from repro_torch.config import ShardingConfig, TrainConfig
+    from repro_torch.kernels import registry
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+    want = {"bitslice_mvm": 2 * PROJ_PER_LAYER * TRAIN_CUT}
+    for mode in TRAIN_SLICING:
+        cfg = train_cfg(mode, TRAIN_CUT)
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            1), dev)
+        batch = fixed_batch(cfg, dev, seed=1)
+
+        def grads(scfg=ShardingConfig()):
+            return tstep.value_and_grad(tstep.make_loss_fn(cfg, scfg),
+                                        params, batch)
+
+        ref, n = counted(grads)
+        if n != want:
+            raise AssertionError(f"train {mode}: a loss and its gradients "
+                                 f"launched {n}, want {want}")
+        with registry.use_backend("torch"):
+            plain, n = counted(grads)
+        if n or not grads_equal(ref, plain):
+            raise AssertionError(f"train {mode}: the torch backend launched "
+                                 f"{n}, or its loss and gradients differ "
+                                 f"from the cuda backend's")
+        flat, n = counted(lambda: grads(ShardingConfig(remat="none")))
+        if n != {"bitslice_mvm": PROJ_PER_LAYER * TRAIN_CUT} or \
+                not grads_equal(ref, flat):
+            raise AssertionError(f"train {mode}: remat off launched {n}, or "
+                                 f"its loss and gradients differ from remat "
+                                 f"on")
+        log(f"train {mode} at {TRAIN_CUT} layers: {want['bitslice_mvm']} K2 "
+            f"launches (forward + recomputation), none else; cuda == torch "
+            f"backend and remat on == off, loss "
+            f"{float(ref[0]['loss']):.6f} and every gradient bit for bit")
+        del params, ref, plain, flat
+    # microbatches, bf16 mode with f32 activations
+    cfg = train_cfg("bf16", TRAIN_CUT, dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                            dev)
+    batch = fixed_batch(cfg, dev, seed=2)
+    full = tstep.make_grad_fn(cfg, TrainConfig())(params, batch)
+    micro = tstep.make_grad_fn(cfg, TrainConfig(
+        microbatch=TRAIN_BATCH // 2))(params, batch)
+    gmax = max(float(g.abs().max()) for g in leaves(full[0]))
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(leaves(micro[0]), leaves(full[0]))) / gmax
+    dloss = abs(float(micro[1]["loss"]) - float(full[1]["loss"]))
+    log(f"train microbatches: 2 x {TRAIN_BATCH // 2} against {TRAIN_BATCH} "
+        f"rows at {TRAIN_CUT} layers (bf16 mode, f32 activations): max "
+        f"|dg| / max |g| = {worst:.3g} (bound {MICRO_TOL:g}), |dloss| = "
+        f"{dloss:.3g}")
+    if not worst <= MICRO_TOL or not dloss <= MICRO_TOL * abs(
+            float(full[1]["loss"])):
+        raise AssertionError("train: two microbatches differ from one batch "
+                             "past the f32 bound")
+
+
+def train_run(mode: str, dev, smi: str, tmp: str, host: bool = False
+              ) -> tuple[dict, dict]:
+    """Qwen2.5-3B at full width and depth, ``Trainer`` on one repeated
+    batch of TRAIN_BATCH x TRAIN_SEQ tokens for TRAIN_STEPS steps
+    (constant rate after a 1-step warm-up, remat on, f32 params,
+    gradients, m and v).  Gated: a quantised step launches exactly 14 K2
+    a layer (7 forward, 7 recomputed) and nothing else, bf16 mode none;
+    every loss and gradient norm finite and the last loss below the
+    first; every param finite after.  Returns (launches, figures)."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+    cfg = train_cfg(mode)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, learning_rate=TRAIN_LR,
+                       warmup_steps=1, schedule="constant",
+                       ckpt_every=10 ** 9, ckpt_dir=tmp)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      device=dev)
+    batch = trainer.data.batch(0)
+    trainer.data.batch = lambda step: batch        # one repeated batch
+    out, launches = counted(trainer.run)
+    wall = time.perf_counter() - t0
+    per_step = 2 * PROJ_PER_LAYER * cfg.num_layers
+    want = {"bitslice_mvm": TRAIN_STEPS * per_step} if mode != "bf16" else {}
+    if launches != want:
+        raise AssertionError(f"train {mode}: {TRAIN_STEPS} steps launched "
+                             f"{launches}, want {want}")
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train {mode}: losses {losses} (grad norms "
+                             f"{[h['grad_norm'] for h in hist]})")
+    params, opt = out["params"], out["opt_state"]
+    if not all(bool(torch.isfinite(p).all()) for p in leaves(params)):
+        raise AssertionError(f"train {mode}: a param is not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mem = torch.cuda.memory_stats()
+    times = sorted(h["step_time_s"] for h in hist[TRAIN_WARMUP:])
+    step_ms = 1e3 * times[len(times) // 2]
+    # one more step under the profiler: K2's device time in it, and the
+    # host's busiest operators
+    tb = {"tokens": torch.from_numpy(batch["tokens"]).to(dev)}
+    t1 = time.perf_counter()
+    by_name, ops = step_profile(lambda: trainer.train_step(params, opt,
+                                                           tb), host)
+    k2_ms = sum(us for name, us in by_name.items()
+                if "bitslice" in name) / 1e3
+    dev_ms = sum(by_name.values()) / 1e3
+    log(f"train {mode}: allocator since the process began: "
+        f"{mem['num_alloc_retries']} retries, {mem['num_device_alloc']} "
+        f"cudaMalloc, {mem['num_device_free']} cudaFree, reserved peak "
+        f"{mem['reserved_bytes.all.peak'] / 2 ** 30:.2f} GiB; the profiled "
+        f"step {time.perf_counter() - t1:.1f} s with the profiler"
+        + (f"; host self time by operator: {ops}" if host else ""))
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"train {mode} ({smi}): Qwen2.5-3B full width, {cfg.num_layers} "
+        f"layers, {n_params / 1e9:.3f} B params, B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ}: losses {' '.join(f'{x:.4f}' for x in losses)}; "
+        f"step {step_ms:.1f} ms (median of steps {TRAIN_WARMUP}-"
+        f"{TRAIN_STEPS - 1}), {TRAIN_ROWS / step_ms * 1e3:.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB; a profiled step: device "
+        f"{dev_ms:.1f} ms, K2 {k2_ms:.2f} ms "
+        f"({per_step if mode != 'bf16' else 0} launches), top: "
+        f"{top_kernels(by_name)}; phase run {wall:.1f} s")
+    figures = dict(step_ms=step_ms, tokens_per_s=TRAIN_ROWS / step_ms * 1e3,
+                   peak_gib=peak, k2_device_ms=k2_ms, device_ms=dev_ms,
+                   losses=losses)
+    return launches, figures
+
+
+class StopAfter:
+    """A preemption handler that asks to stop at its ``n``-th poll (the
+    trainer polls once a step, after it)."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    @property
+    def should_stop(self) -> bool:
+        self.n -= 1
+        return self.n <= 0
+
+
+def train_resume(dev, tmp: str) -> None:
+    """The reduced Qwen2.5-3B in ``pum`` on the card: a run stopped by
+    the preemption flag after 3 of 6 steps and resumed from its
+    checkpoint ends with the params and optimiser state of an
+    uninterrupted run, bit for bit."""
+    import os
+    import torch
+    from repro_torch import configs
+    from repro_torch.config import PUMConfig, TrainConfig
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+    cfg = configs.get_reduced("qwen2.5-3b").replace(pum=PUMConfig(
+        mode="pum"))
+
+    def trainer(sub, preemption=None):
+        tcfg = TrainConfig(steps=6, learning_rate=1e-2, warmup_steps=1,
+                           ckpt_every=100, ckpt_dir=os.path.join(tmp, sub))
+        return Trainer(cfg, tcfg, batch=4, seq=32, preemption=preemption,
+                       device=dev)
+
+    whole = trainer("whole").run()
+    first = trainer("resumed", StopAfter(3)).run()
+    second = trainer("resumed").run()
+    a = leaves([whole["params"], whole["opt_state"]])
+    b = leaves([second["params"], second["opt_state"]])
+    if not (first["stopped_early"] and first["last_step"] == 3
+            and second["last_step"] == 6 and len(a) == len(b)
+            and all(torch.equal(x, y) for x, y in zip(a, b))):
+        raise AssertionError("train resume: the resumed run's params and "
+                             "optimiser state differ from the whole run's")
+    log(f"train resume: stopped at step 3, resumed to 6 from its "
+        f"checkpoint: params, m, v and count bit-equal to an unbroken run "
+        f"({len(a)} leaves)")
+
+
+def train_moe(dev, smi: str) -> dict[str, int]:
+    """OLMoE-1B-7B at full width cut to 2 of its 16 layers, ``pum``: one
+    train step through the router, the experts (float) and the aux
+    losses; the router's gradient finite and non-zero in both layers,
+    the total loss the NLL plus the weighted aux losses."""
+    import torch
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+    cfg = train_cfg("pum", 2, arch="olmoe-1b-7b")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                            dev)
+    batch = fixed_batch(cfg, dev, seed=3)
+    (metrics, grads), launches = counted(lambda: tstep.value_and_grad(
+        tstep.make_loss_fn(cfg), params, batch))
+    routers = [blk["moe"]["router"]["w"] for blk in grads["blocks"]]
+    lb = float(metrics.get("moe_lb", float("nan")))
+    if not (math.isfinite(lb) and float(metrics["total_loss"])
+            > float(metrics["loss"]) + tstep.MOE_LB_WEIGHT * lb
+            and all(bool(torch.isfinite(r).all()) and float(r.abs().max()) > 0
+                    for r in routers)):
+        raise AssertionError(f"train moe: metrics {metrics}, router grads "
+                             f"finite and non-zero: "
+                             f"{[float(r.abs().max()) for r in routers]}")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1)
+    opt = tstep.init_opt_state(params, tcfg)
+    t0 = time.perf_counter()
+    _, _, m = tstep.make_train_step(cfg, tcfg)(params, opt, batch)
+    torch.cuda.synchronize()
+    if not math.isfinite(float(m["total_loss"])):
+        raise AssertionError(f"train moe: step metrics {m}")
+    log(f"train moe ({smi}): OLMoE-1B-7B, 2 of 16 layers, B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ}: loss {float(metrics['loss']):.4f} moe_lb {lb:.4f} "
+        f"total {float(metrics['total_loss']):.4f}; router |grad| max "
+        f"{', '.join(f'{float(r.abs().max()):.3g}' for r in routers)}; "
+        f"{launches} launches for a loss and its gradients; a step "
+        f"{1e3 * (time.perf_counter() - t0):.0f} ms")
+    return launches
+
+
+def train_phase(dev, smi: str, host: bool = False
+                ) -> tuple[dict[str, int], dict[str, dict]]:
+    """Phase 15 under deterministic algorithms (the embedding's and the
+    MoE gathers' backward sum without atomics); returns K2's launches on
+    the main path (the full-width runs) and each mode's figures.
+    ``host`` (``--profile-host``) adds the host's side to each profiled
+    step."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    # every kernel output is written whole: no NaN fill of torch.empty
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    launches: dict[str, int] = {}
+    figures = {}
+    try:
+        train_parity(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train: parity checks in {time.perf_counter() - t0:.1f} s")
+        for mode in TRAIN_MODES:
+            n, figures[mode] = train_run(mode, dev, smi,
+                                         os.path.join(tmp, mode), host)
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+            gc.collect()
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        train_resume(dev, tmp)
+        log(f"train: resume in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        train_moe(dev, smi)
+        log(f"train: moe in {time.perf_counter() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    log(f"train: phase 15 in {time.perf_counter() - t0:.1f} s")
+    return launches, figures
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -4828,11 +5300,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
                                        "xlstm", "moe", "hybrid",
-                                       "families", "frontend"],
+                                       "families", "frontend", "train"],
                     default=None)
+    ap.add_argument("--profile-host", action="store_true",
+                    help="phase 15: profile the host's operators in each "
+                         "mode's profiled step too (some 20 s a mode)")
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
+    # phase 15's bit-for-bit gates run cuBLAS under deterministic
+    # algorithms, which needs its workspace fixed before the CUDA context
+    # exists: the whole run takes it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
@@ -4905,6 +5384,14 @@ def main(argv=None) -> int:
         log(f"phase 14 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "train":
+        cases = check_train_mvm(dev, gpu_name)
+        train_launches, _ = train_phase(dev, smi, args.profile_host)
+        log(json.dumps({"kernels": {"launches": train_launches,
+                                    "train_shapes": cases}}))
+        log(f"phase 15 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     if args.only == "families":
         cases = check_family_kernels(dev, gpu_name)
         family_launches = families_phase(smi)
@@ -4928,6 +5415,7 @@ def main(argv=None) -> int:
         rows[name]["hybrid_shapes"] = cases
     for name, cases in check_family_kernels(dev, gpu_name).items():
         rows[name]["family_shapes"] = cases
+    rows["bitslice_mvm"]["train_shapes"] = check_train_mvm(dev, gpu_name)
     rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
@@ -4968,6 +5456,9 @@ def main(argv=None) -> int:
     for k, v in frontend_phase(smi).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 14 done at {time.perf_counter() - start:.1f} s")
+    for k, v in train_phase(dev, smi, args.profile_host)[0].items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 15 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

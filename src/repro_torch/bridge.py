@@ -1,4 +1,6 @@
-"""The weight bridge: the JAX package's param tree -> the port's params.
+"""The weight bridge: the JAX package's param tree -> the port's params
+(and its gradient and optimiser-state trees, which have the params'
+structure).
 
 The input is the JAX tree with every array already converted to numpy
 (the caller does that, so this module never sees a JAX array):
@@ -101,6 +103,21 @@ def params_from_numpy(tree: dict[str, Any], cfg: ModelConfig,
                           if k != "blocks"}
         out["encoder"]["blocks"] = [_convert(enc["blocks"], dev, layer)
                                     for layer in range(cfg.encoder_layers)]
+    return out
+
+
+def opt_state_from_numpy(tree: dict[str, Any], cfg: ModelConfig,
+                         device: str | torch.device = "cuda"
+                         ) -> dict[str, Any]:
+    """The port's optimiser state (``train.step.init_opt_state``) from a
+    numpy copy of the JAX package's: ``m``, ``v`` and an error-feedback
+    residual ``ef`` have the params' structure and are unstacked as
+    they are, ``count`` becomes an int32 scalar tensor.  A gradient tree
+    crosses with :func:`params_from_numpy` itself."""
+    dev = resolve_device(device)
+    out = {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()
+           if k != "count"}
+    out["count"] = _tensor(np.asarray(tree["count"], np.int32), dev)
     return out
 
 

@@ -1,13 +1,16 @@
 """Frozen dataclass configuration for the PyTorch port.
 
-A copy of the model-side configs of the JAX package (``PUMConfig`` and
-the ``ModelConfig`` it lives in): the port shares no module with the
-JAX package, so the two configs are kept field for field alike and the
-parity tests build both from the same keyword arguments.
+A copy of the JAX package's configs that the port runs: ``PUMConfig``
+and the ``ModelConfig`` it lives in, ``TrainConfig``, and the one-card
+part of ``ShardingConfig``.  The port shares no module with the JAX
+package, so the configs are kept field for field alike and the parity
+tests build both from the same keyword arguments.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass, field
 
 
@@ -150,6 +153,51 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Training configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """The reference's ``ShardingConfig`` knobs that mean something on
+    one card.  Its mesh and serving knobs (``fsdp``, ``seq_shard``,
+    ``scan_layers``, ``donate``, ``serve_weight_dtype``) have no
+    counterpart: the port's step always writes its results into the
+    tensors it was given, where the reference's jit donates them."""
+    remat: str = "block"               # "none" | "block" | "full"
+    grad_compress: bool = False        # int8 gradients with error feedback
+    # cast f32 matrices to bf16 before use (the reference's FSDP gathers
+    # then move bf16)
+    bf16_params: bool = False
+
+    def __post_init__(self):
+        assert self.remat in ("none", "block", "full"), self.remat
+
+
+def _default_ckpt_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    microbatch: int = 0                # 0 -> no accumulation
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    schedule: str = "cosine"           # cosine | wsd | constant
+    wsd_decay_frac: float = 0.1
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: str = field(default_factory=_default_ckpt_dir)
+    ckpt_keep: int = 3
 
 
 def small_test_config(**kw) -> ModelConfig:

@@ -20,9 +20,14 @@ one of three modes (``PUMConfig.mode``):
 float weight, quantised on every call as the JAX package's forward
 does.  The raw-weight forward returns the value the JAX package's
 straight-through forward returns (``yq``) and computes no shadow float
-matmul; its gradient (QAT) is not ported yet, so it raises
-``NotImplementedError`` where autograd would need one.  Tensor
-parallelism is not ported.
+matmul.  Where autograd needs a gradient (QAT: ``x`` or ``w`` requires
+one, and ``cfg.inference`` is off), :class:`_ShadowSTE` gives the
+straight-through estimator of the reference's ``_ste(_matmul_bf16(x,
+w), yq)``: the forward value ``yq``, the backward that of the shadow
+product ``x @ w.to(x.dtype)``, computed only in the backward
+(``torch.matmul``, as the reference's shadow product runs outside any
+kernel).  A packed weight has no gradient.  Tensor parallelism is not
+ported.
 
 Kernel dispatch (:mod:`repro_torch.kernels.registry`): on CUDA tensors
 the ``cuda`` backend runs the ``bitslice_mvm`` kernels; the ``torch``
@@ -43,6 +48,57 @@ from repro_torch.core.prepack import PackedLinear
 from repro_torch.kernels import registry
 from repro_torch.kernels.bitslice_mvm import ops as mvm_ops
 from repro_torch.kernels.registry import KernelBackend
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimators
+# ---------------------------------------------------------------------------
+
+class _STE(torch.autograd.Function):
+    """``xq`` forward, the identity to ``x`` backward (the reference's
+    ``_ste``)."""
+
+    @staticmethod
+    def forward(ctx, x, xq):
+        return xq.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant(x: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """``x`` quantised to ``bits`` and back, with the straight-through
+    gradient."""
+    q, s = bitslice.quantize_symmetric(x, bits, axis=axis)
+    return _STE.apply(x, (q.to(torch.float32) * s).to(x.dtype))
+
+
+class _ShadowSTE(torch.autograd.Function):
+    """``forward_fn(x, w)`` (the quantised product ``yq``) forward; the
+    gradient of the shadow product ``x @ w.to(x.dtype)`` backward: ``dx``
+    in x's dtype, ``dw`` cast back to w's (the transpose of the
+    reference's ``astype``).  The shadow product itself is never
+    formed."""
+
+    @staticmethod
+    def forward(ctx, x, w, forward_fn):
+        ctx.save_for_backward(x, w)
+        return forward_fn(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wx = w.to(x.dtype)
+        g = g.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, wx.T)
+        if ctx.needs_input_grad[1]:
+            k, n = wx.shape
+            dw = torch.matmul(x.reshape(-1, k).T, g.reshape(-1, n)
+                              ).to(w.dtype)
+        return dx, dw, None
 
 
 def _mvm_backend(x: torch.Tensor) -> KernelBackend:
@@ -208,17 +264,18 @@ def pum_linear(x: torch.Tensor, w: torch.Tensor | PackedLinear,
             if w.mode != cfg.mode:
                 raise ValueError(f"weight packed for {w.mode!r}, config "
                                  f"says {cfg.mode!r}")
-        elif torch.is_grad_enabled() and (x.requires_grad
-                                          or w.requires_grad):
-            raise NotImplementedError(
-                f"the gradient of {cfg.mode} with a raw float weight (the "
-                f"QAT straight-through estimator) is not ported yet; run "
-                f"the forward under torch.no_grad()")
-        if cfg.mode == "int8":
-            y = _matmul_int8_packed(x, w) if packed else _matmul_int8(x, w)
+            y = _matmul_int8_packed(x, w) if cfg.mode == "int8" \
+                else _matmul_pum_packed(x, w, cfg, generator)
         else:
-            y = _matmul_pum_packed(x, w, cfg, generator) if packed \
-                else _matmul_pum(x, w, cfg, generator)
+            def quantised(x, w):
+                return _matmul_int8(x, w) if cfg.mode == "int8" \
+                    else _matmul_pum(x, w, cfg, generator)
+
+            if (not cfg.inference and torch.is_grad_enabled()
+                    and (x.requires_grad or w.requires_grad)):
+                y = _ShadowSTE.apply(x, w, quantised)
+            else:
+                y = quantised(x, w)
     else:
         raise ValueError(cfg.mode)
     if bias is not None:

@@ -95,6 +95,26 @@ def use_backend(backend: KernelBackend | str | None = None,
         st.pop()
 
 
+def snapshot():
+    """A context manager that installs this thread's current selection
+    (every open :func:`use_backend` frame) in the thread it is entered
+    in: the autograd engine runs a CUDA backward, and with it a
+    checkpointed block's recomputation, on a thread of its own."""
+    frames = list(_stack())
+
+    @contextlib.contextmanager
+    def restore():
+        st = _stack()
+        depth = len(st)
+        st.extend(frames)
+        try:
+            yield
+        finally:
+            del st[depth:]
+
+    return restore
+
+
 def resolve_backend(tensor: torch.Tensor,
                     backend: KernelBackend | str | None = None, *,
                     kernel: str | None = None) -> KernelBackend:

@@ -16,13 +16,16 @@ a recurrent mixer's per-slot rows, all updated in place.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import prepack, pum_linear
 from repro_torch.device import resolve_device
+from repro_torch.kernels import registry
 from repro_torch.models import attention, layers, mlp, transformer
 
 Params = dict[str, Any]
@@ -189,13 +192,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
             kv_len: int | None = None,
             write_table: torch.Tensor | None = None,
             commit: bool = True, collect_states: bool = False,
-            ) -> tuple[torch.Tensor, list[Params] | None]:
-    """tokens: [B, S] int -> (logits [B, S or 1, V_padded] f32, states).
+            remat: bool = False, with_aux: bool = False,
+            ) -> tuple:
+    """tokens: [B, S] int -> (logits [B, S or 1, V_padded] f32, states),
+    and with ``with_aux`` a third value: the MoE FFNs' aux losses
+    (``{"moe_lb", "moe_z"}`` summed over the layers, as the reference's
+    train mode returns them; ``{}`` without MoE).
 
-    Modes: train/score (states None); prefill (contiguous states,
-    cache_index 0); decode (cache_index a scalar or [B] per-slot
-    depths); paged (states from :func:`init_paged_state`, per-row
-    ``block_table`` [B, W] and the engine window ``kv_len``).  KV
+    Modes: train/score (states None; ``remat`` recomputes each block in
+    the backward, ``torch.utils.checkpoint`` around it, as the
+    reference's ``jax.checkpoint`` around each group); prefill
+    (contiguous states, cache_index 0); decode (cache_index a scalar
+    or [B] per-slot depths); paged (states from
+    :func:`init_paged_state`, per-row ``block_table`` [B, W] and the
+    engine window ``kv_len``).  KV
     storage is written in place; recurrent states too, unless
     ``commit=False``, which leaves them as they were and returns their
     successors in the returned list (the paged slot step keeps the rows
@@ -237,16 +247,36 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         encoder_out = _run_encoder(params, cfg, encoder_frames.to(h.dtype))
 
     out_states = None if states is None else []
+    aux_total: dict[str, torch.Tensor] = {}
+    recompute = remat and states is None
+    if recompute:
+        # the recomputation runs where the backward does (on the card, a
+        # thread of its own): it takes the caller's kernel selection
+        restore = registry.snapshot()
     for j, blk in enumerate(params["blocks"]):
         st = states[j] if states is not None else None
-        h, st = transformer.apply_block(
-            blk, h, cfg, j, positions=positions, state=st,
-            cache_index=cache_index, encoder_out=encoder_out,
-            block_table=block_table,
-            kv_len=kv_len, write_table=write_table, commit=commit,
-            collect_states=collect_states)
+        aux = {} if with_aux else None
+        if recompute:
+            def block(h, blk=blk, j=j, aux=aux):
+                h, _ = transformer.apply_block(
+                    blk, h, cfg, j, positions=positions,
+                    encoder_out=encoder_out, aux=aux)
+                return h, aux
+
+            h, aux = checkpoint.checkpoint(
+                block, h, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), restore()))
+        else:
+            h, st = transformer.apply_block(
+                blk, h, cfg, j, positions=positions, state=st,
+                cache_index=cache_index, encoder_out=encoder_out,
+                block_table=block_table,
+                kv_len=kv_len, write_table=write_table, commit=commit,
+                collect_states=collect_states, aux=aux)
         if out_states is not None:
             out_states.append(st)
+        for k, v in (aux or {}).items():
+            aux_total[k] = aux_total[k] + v if k in aux_total else v
 
     h = layers.norm_apply(params["final_norm"], h, cfg)
     if last_only:
@@ -256,4 +286,6 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
         head = params["embed"].T
     logits = pum_linear.float_matmul(h.to(torch.float32),
                                      head.to(torch.float32))
+    if with_aux:
+        return logits, out_states, aux_total
     return logits, out_states

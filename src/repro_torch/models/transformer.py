@@ -141,6 +141,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 kv_len: int | None = None,
                 write_table: torch.Tensor | None = None,
                 commit: bool = True, collect_states: bool = False,
+                aux: dict[str, torch.Tensor] | None = None,
                 ) -> tuple[torch.Tensor, Params | None]:
     """Returns (x, state).  A KV cache in ``state`` is updated in place;
     a recurrent state is written in place too (``commit``), or left as
@@ -149,7 +150,9 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     recurrent mixer's state after every position ([B, S, ...] leaves)
     and writes none of it: it implies ``commit=False``; KV caches are
     written as ever, and the step rolls back what it rejects.  An MoE
-    FFN's aux losses are not computed (serving needs none).  With
+    FFN's aux losses are computed only when ``aux`` is a dict (the
+    train mode's), which they are written into; serving passes none.
+    With
     ``encoder_out`` [B, T, D], a block with ``cross`` params attends
     over it, its K and V projected from it on every call, as the
     reference's block does; without, the block skips it."""
@@ -184,5 +187,8 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         x = x + mlp.mlp(p["mlp"], h, cfg)
     elif "moe" in p:
         h = layers.norm_apply(p["norm2"], x, cfg)
-        x = x + moe.moe_ffn(p["moe"], h, cfg, aux=False)[0]
+        h, losses = moe.moe_ffn(p["moe"], h, cfg, aux=aux is not None)
+        x = x + h
+        if aux is not None:
+            aux.update(losses)
     return x, state

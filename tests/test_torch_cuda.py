@@ -1208,3 +1208,83 @@ def test_spec_step_on_the_card_equals_one_token_steps(dev, family):
                    for n, t in st.items())
         if drafter is replay:
             assert runs[0].spec_stats()["advance_per_step"] > 1.5
+
+
+# ---------------------------------------------------------------------------
+# training: the straight-through gradient through K2, the train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pum", "int8"])
+def test_straight_through_forward_runs_k2(dev, mode):
+    """A raw-weight quantised forward with a gradient launches K2 once
+    (its unpacked entry) and equals the torch backend's bit for bit; the
+    backward launches nothing and its gradients are the torch backend's
+    bit for bit."""
+    from repro_torch.config import PUMConfig
+    from repro_torch.core import pum_linear as tpl
+    g = torch.Generator(device=dev).manual_seed(30)
+    x0 = torch.randn((4, 33, 256), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    w0 = torch.randn((256, 96), generator=g, device=dev) * 0.05
+    runs = []
+    for backend in ("cuda", "torch"):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        registry.reset_launches()
+        with registry.use_backend(backend):
+            y = tpl.pum_linear(x, w, PUMConfig(mode=mode))
+            launched = dict(registry.LAUNCHES)
+            y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert dict(registry.LAUNCHES) == launched
+        runs.append((launched, y.detach(), x.grad, w.grad))
+    assert runs[0][0] == {"bitslice_mvm": 1} and runs[1][0] == {}
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_equal_the_torch_backend(dev):
+    """Two train steps of the reduced Qwen2.5-3B in ``pum`` (remat on: the
+    recomputation runs on the backward's own thread) on the cuda and the
+    torch backend: the same params, optimiser state and metrics bit for
+    bit, under deterministic algorithms (the embedding's backward sums
+    without atomics); 14 K2 launches a layer and step on cuda, none on
+    torch."""
+    from repro_torch import configs
+    from repro_torch.config import PUMConfig, TrainConfig
+    from repro_torch.models import lm
+    from repro_torch.train import step as tstep
+    from repro_torch.tree import leaves
+    cfg = configs.get_reduced("qwen2.5-3b").replace(pum=PUMConfig(
+        mode="pum"))
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    # warn_only: cuBLAS asks for CUBLAS_WORKSPACE_CONFIG set before the
+    # CUDA context exists, which an earlier test of the session may have
+    # made; on one stream its GEMMs repeat their bits regardless
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ends = []
+        for backend in ("cuda", "torch"):
+            params = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev)
+            opt = tstep.init_opt_state(params, tcfg)
+            step = tstep.make_train_step(cfg, tcfg)
+            registry.reset_launches()
+            with registry.use_backend(backend):
+                metrics = [step(params, opt, {"tokens": toks})[2]
+                           for _ in range(2)]
+            torch.cuda.synchronize()
+            want = {"bitslice_mvm": 2 * 14 * cfg.num_layers} \
+                if backend == "cuda" else {}
+            assert dict(registry.LAUNCHES) == want
+            ends.append((leaves([params, opt]), metrics))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(a, b) for a, b in zip(ends[0][0], ends[1][0]))
+    assert all(torch.equal(m0[k], m1[k]) for m0, m1 in zip(ends[0][1],
+                                                         ends[1][1])
+               for k in m0)

@@ -24,12 +24,13 @@ import torch
 
 from repro_torch import configs
 from repro_torch.apps import aes_app
-from repro_torch.config import PUMConfig
+from repro_torch.config import PUMConfig, TrainConfig
 from repro_torch.core.hct import DarthPUMDevice
-from repro_torch.launch import aes, serve
+from repro_torch.launch import aes, serve, train
 from repro_torch.models import lm
 from repro_torch.serve import (ContinuousBatchingScheduler, ServeEngine,
                                oracle_completion)
+from repro_torch.train import Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -60,24 +61,40 @@ def test_port_imports_no_jax_and_no_jax_package():
              for f in files[:-1]}
     assert names >= {"serve/errors.py", "serve/policies.py",
                      "serve/chaos.py", "serve/frontend.py",
-                     "ft/__init__.py", "ft/monitor.py", "ft/preemption.py"}
+                     "ft/__init__.py", "ft/monitor.py", "ft/preemption.py",
+                     "optim/adamw.py", "optim/schedules.py",
+                     "train/step.py", "train/trainer.py",
+                     "ckpt/checkpoint.py", "data/synthetic.py",
+                     "dist/compress.py", "launch/train.py", "tree.py"}
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-def test_spec_module_loads_no_jax():
-    """``repro_torch.serve.spec`` (the drafters) brings neither JAX nor
-    the JAX package into a fresh interpreter."""
+def _loads_no_jax(module: str) -> None:
+    """``module`` brings neither JAX nor the JAX package into a fresh
+    interpreter."""
     import subprocess
     import sys
-    code = ("import sys; import repro_torch.serve.spec; "
+    code = (f"import sys; import {module}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_spec_module_loads_no_jax():
+    """``repro_torch.serve.spec`` (the drafters) brings neither JAX nor
+    the JAX package into a fresh interpreter."""
+    _loads_no_jax("repro_torch.serve.spec")
+
+
+def test_train_modules_load_no_jax():
+    """Nor does the training path: the launcher and all it imports (the
+    trainer, step, optimiser, checkpoints, data and compression)."""
+    _loads_no_jax("repro_torch.launch.train")
 
 
 @pytest.fixture
@@ -109,6 +126,10 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         DarthPUMDevice(n_hcts=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         aes.main(["--blocks", "256"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, TrainConfig())
 
 
 ARCHS = ["qwen2.5-3b", "xlstm-350m"]

@@ -133,20 +133,23 @@ def test_positionwise_runs_a_float_product_position_by_position(
 
 
 def test_unported_paths_raise():
-    """The raw-weight int8/pum forward has no gradient yet (the QAT
-    straight-through estimator is not ported): it raises wherever
-    autograd would need one, and runs where it would not."""
+    """The raw-weight int8/pum forward has its gradient now (the QAT
+    straight-through estimator, ``tests/test_torch_train.py`` holds it
+    against JAX's): it no longer raises where autograd needs one, gives
+    ``yq`` with or without a gradient, and none under ``no_grad``."""
     (_, _, _), (tx, tw, _) = _case(4, "float32")
     for mode in ("pum", "int8"):
-        with pytest.raises(NotImplementedError, match="gradient"):
-            tpl.pum_linear(tx, tw.clone().requires_grad_(), TPUM(mode=mode))
-        with pytest.raises(NotImplementedError, match="gradient"):
-            tpl.pum_linear(tx.clone().requires_grad_(), tw, TPUM(mode=mode))
+        w = tw.clone().requires_grad_()
+        x = tx.clone().requires_grad_()
+        y = tpl.pum_linear(x, w, TPUM(mode=mode))
+        y.sum().backward()
+        assert w.grad.shape == tw.shape and x.grad.shape == tx.shape
         with torch.no_grad():
-            y = tpl.pum_linear(tx, tw.clone().requires_grad_(),
-                               TPUM(mode=mode))
-        assert y.shape == (2, 6, 40) and not y.requires_grad
-        assert tpl.pum_linear(tx, tw, TPUM(mode=mode)).shape == (2, 6, 40)
+            y0 = tpl.pum_linear(tx, tw.clone().requires_grad_(),
+                                TPUM(mode=mode))
+        assert y0.shape == (2, 6, 40) and not y0.requires_grad
+        assert torch.equal(y.detach(), y0)
+        assert torch.equal(tpl.pum_linear(tx, tw, TPUM(mode=mode)), y0)
     # the float mode keeps its gradient
     w = tw.clone().requires_grad_()
     tpl.pum_linear(tx, w, TPUM(mode="bf16")).sum().backward()
