@@ -44,7 +44,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and whisper-tiny's encoder (M = 6000), bit for bit; K3 at glm4-9b's
    G = 16 and command-r's G = 12 (one position's heads over two CTAs of
    8 queries) and minicpm-2b's KV = 36, G = 1, hd = 64, at S = 1, 4 and
-   16 over T = 81 and S = 1 over T = 1024, pools bit for bit.
+   16 over T = 81 and S = 1 over T = 1024, pools bit for bit.  Then
+   phase 16's shapes (``check_encoder_mvm``): K1 and K2 at the encoder's
+   768 x 768, 768 x 3072 and 3072 x 768 at M = 4096 (8 x 512 tokens),
+   bit for bit, timed beside their bounds and ``torch._int_mm``.
 4. serve pum  — ``repro_torch.launch.serve.main`` on Qwen2.5-3B at full
    width with prepacked ``pum`` weights: 4 slots, KV blocks of 16,
    chunked prefill, a burst of 6 requests of 20..64 prompt tokens, 16
@@ -69,7 +72,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    implies (``PREFIX_STATS``), the launch counts of each run, each step
    built once and nothing new warm, no block live after a drain and a
    flush; prefill chunks, seconds and tokens/s of the three runs.
-5. serve int8 — the same with ``int8`` weights.
+5. serve int8 — the same with ``int8`` weights; then the CLI with
+   ``--no-prepack`` on the same trace (``no_prepack_run``: the float
+   weights quantised every call, K2's unpacked entry in the graphs):
+   the prepacked run's tokens, the same launches a step or chunk.
 5b. serve bf16 — the same with the float weights unpacked: no MVM
    kernel launches, K3 one a layer a step and chunk.
 6. aes — ``repro_torch.launch.aes.main`` at 2^24 blocks (256 MiB of
@@ -147,8 +153,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    peak memory, and a decode replay's device ms beside the paged
    scheduler's on the same trace, timed in turns (paged, contiguous,
    contiguous, paged).
-10. xlstm — xLSTM-350M at full width cut to 12 of its 24 layers (9
-   mLSTM + 3 sLSTM, ``XLSTM_SERVE_LAYERS``; random weights), in
+10. xlstm — xLSTM-350M at full width cut to 8 of its 24 layers (6
+   mLSTM + 2 sLSTM, ``XLSTM_SERVE_LAYERS``; random weights), in
    ``pum`` and ``int8``: the CLI on phase
    4's trace paged (blocks of 16, chunked prefill; no KV, so 0 blocks a
    request) and with ``--kv-block-size 0``, then on both schedulers
@@ -159,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    second run builds nothing; one decode program; graphs == eager in
    tokens and launches; each recurrent step built and called once
    leaves the state one eager call leaves (fresh schedulers, step by
-   step); 60 MVM launches a step, chunk or prompt and no K3; states
+   step); 40 MVM launches a step, chunk or prompt and no K3; states
    and every step's last logits finite; backend parity; then the static
    batch (scan == ``--loop``, t = 0).  Prints decode ms/step (graphs and
    eager), tokens/s, a decode replay's device ms with K1's or K2's
@@ -236,9 +242,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bytes a slot, the KV bytes a token, peak memory and the phase's
    seconds.
 13. families — the rest of the reference's registry at full width,
-   random weights packed at load layer by layer: glm4-9b (40 layers,
-   GQA 32/2, hd 128) in ``pum`` and ``int8``, minicpm-2b (40 layers, MHA
-   36 x 64, tied embeddings, vocabulary 122 753) and command-r-plus-104b
+   random weights packed at load layer by layer: glm4-9b (cut to
+   FAMILY_LAYERS = 20 of its 40 layers, GQA 32/2, hd 128) in ``pum`` and
+   ``int8``, minicpm-2b (20 of 40 layers, MHA 36 x 64, tied embeddings,
+   vocabulary 122 753) and command-r-plus-104b
    cut to CR_LAYERS = 6 of its 64 layers (d_model 12288, d_ff 33792,
    GQA 96/8; its packed layers and f32 tied embedding at 64 layers hold
    516 GB) and llava-next-mistral-7b's text (32 layers) in ``pum``, each
@@ -340,8 +347,33 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
    removes): params and optimiser state bit-equal to an unbroken run;
    then OLMoE-1B-7B at full width cut to 2 of 16 layers: one step with
    the aux losses and the router's gradient finite and non-zero.
-16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
-   Every kernel of the main paths (phases 4-15) must have launched there;
+16. encoder — the paper's LLM encoder (§5.2, ``apps/encoder_app.py``)
+   and ``pum.ibert``.  First each I-BERT function
+   (``core/ibert.py``) at the encoder's shapes (softmax over [8, 12,
+   512, 512], GELU over [8, 512, 3072], LayerNorm over [8, 512, 768]):
+   on the card bit-equal to the CPU and across two calls, timed beside
+   its byte bound and the float function it replaces.  Then the encoder
+   at RoBERTa-base's published widths (12 layers, d_model 768, d_ff
+   3072, 12 heads, vocabulary 50265; weights from a seed on the card)
+   on 8 x 512 tokens, in ``pum`` and ``int8`` prepacked, both raw, and
+   ``bf16``, each with I-BERT off and on: exactly 72 K1 launches a
+   ``pum`` prepacked forward, 72 K2 in the others but ``bf16`` (none),
+   K3 and K4 never; the ``torch`` backend bit-equal, two runs bit-equal,
+   raw == prepacked in ``int8`` and ``pum``, finite; ms a forward and
+   sequences/s; printed, the cosine of I-BERT's hidden states with the
+   float path's and the top-1 agreement of ``encoder_logits`` (``pum``,
+   at 2 and 12 layers), the I-BERT softmax's all-zero rows, and the
+   profiler's split of a ``pum`` I-BERT forward (K1, the einsums'
+   GEMMs, each I-BERT function, the rest).  Then ``pum.ibert`` through
+   the language model: whisper-tiny's ``generate(encoder_frames=)`` as
+   phase 13 runs it (the I-BERT softmax over 1500 frames and the
+   cross-attention; its gates), and Qwen2.5-3B at full width cut to
+   ``IBERT_QWEN_LAYERS`` layers through the paged CLI on phase 4's
+   trace: K1 alone (no K3: the paged branch takes the I-BERT softmax in
+   the plain composition), graphs == eager and ``cuda`` == ``torch``
+   logits bit for bit.
+17. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   Every kernel of the main paths (phases 4-16) must have launched there;
    K4's int8 entry is on none of them (its ``launches`` is 0, and any
    launch there fails the run): phase 3 holds it against its plain
    version.  K2's row carries its rows at the CNN's layer shapes
@@ -351,7 +383,8 @@ Speculative decoding (``spec_check``; SPEC_K = 3, the card's main
    (``hybrid_shapes``), K3's at the MoE head layouts (``moe_shapes``),
    at Jamba's (``hybrid_shapes``) and at the verify shape
    (``verify_shape``); K1's, K2's and K3's at phase 13's shapes
-   (``family_shapes``); K2's at the training shapes (``train_shapes``).
+   (``family_shapes``); K2's at the training shapes (``train_shapes``);
+   K1's and K2's at the encoder's (``encoder_shapes``).
    The launches count the spec runs' verify steps and phase 15's
    full-width training steps.
 
@@ -362,7 +395,8 @@ shapes and 10, ``--only moe`` phases 1, 2, phase 3's MoE shapes and
 11, ``--only hybrid`` phases 1, 2, phase 3's Jamba shapes and 12,
 ``--only families`` phases 1, 2, phase 3's phase-13 shapes and 13,
 ``--only frontend`` phases 1, 2 and 14, ``--only train`` phases 1, 2,
-phase 3's training shapes and 15.
+phase 3's training shapes and 15, ``--only encoder`` phases 1, 2, phase
+3's encoder shapes and 16.
 """
 from __future__ import annotations
 
@@ -1812,6 +1846,44 @@ def spec_check(label: str, sched, requests, want: dict, smi: str, *,
     return out
 
 
+def no_prepack_run(mode: str, want: dict[int, list[int]], smi: str
+                   ) -> dict[str, int]:
+    """The CLI with ``--no-prepack`` on the same trace: the float weights
+    quantised on every call (K2's unpacked entry, the planes sliced a
+    call) in CUDA graphs.  Gated: the prepacked run's tokens, the same
+    launches a step or chunk on K2 (``launch_gate``), no packed weight.
+    Returns its launches."""
+    import gc
+    import torch
+    from repro_torch.core.prepack import PackedLinear
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    registry.reset_launches()
+    res = serve.main(SERVE_ARGS + ["--pum-mode", mode, "--no-prepack"])
+    torch.cuda.synchronize()
+    launches = dict(registry.LAUNCHES)
+    sched = res["scheduler"]
+    got = launch_gate(mode, sched.cfg, sched.decode_steps,
+                      sched.prefill_chunks, launches)
+    raw = not any(isinstance(v, PackedLinear)
+                  for blk in sched.params["blocks"]
+                  for sub in blk.values() if isinstance(sub, dict)
+                  for lin in sub.values() if isinstance(lin, dict)
+                  for v in lin.values())
+    same = tokens_of(res["completions"]) == want
+    log(f"serve {mode} --no-prepack: {sched.decode_steps} decode steps + "
+        f"{sched.prefill_chunks} chunks, launches {got}; the prepacked "
+        f"run's tokens: {same}; float weights: {raw}; decode_ms_per_step "
+        f"{res['decode_ms']:.3f} (graphs, first run) on {smi}")
+    if not (same and raw):
+        raise AssertionError(f"{mode} --no-prepack: tokens equal {same}, "
+                             f"float weights {raw}")
+    del res, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
     """Phases 4-5b; returns each kernel's launches on the main path
     (each mode's first run), and by mode the greedy trace's tokens and
@@ -1882,6 +1954,9 @@ def serve_phases(smi: str) -> tuple[dict[str, int], dict[str, dict]]:
         for k, v in spec["launches"].items():
             launches[k] = launches.get(k, 0) + v
         greedy[mode]["spec_sampled"] = spec.get("sampled")
+        if mode == "int8":
+            for k, v in no_prepack_run(mode, first, smi).items():
+                launches[k] = launches.get(k, 0) + v
         del res, sched
         gc.collect()
         torch.cuda.empty_cache()
@@ -2914,10 +2989,11 @@ XLSTM_STATIC_ARGS = ["--arch", "xlstm-350m"] + STATIC_ARGS[2:]
 XLSTM_LAYERS = 24
 XLSTM_MVM = {(1024, 6144): 18, (1024, 4): 36, (1024, 2048): 42,
              (2048, 1024): 24}
-# phase 10 serves xLSTM-350M at full width cut to 12 of its 24 layers
-# (9 mLSTM + 3 sLSTM, the same period of 4), so that the script stays
-# well inside its time limit on a slow host (PR 30: 1092 s uncut there)
-XLSTM_SERVE_LAYERS = 12
+# phase 10 serves xLSTM-350M at full width cut to 8 of its 24 layers
+# (6 mLSTM + 2 sLSTM, the same period of 4), so that the script stays
+# well inside its time limit on a slow host (1092 s uncut there; 12
+# layers until phase 16 came)
+XLSTM_SERVE_LAYERS = 8
 
 
 def xlstm_cut():
@@ -4289,6 +4365,17 @@ FAMILY_ATTN_CASES = [(1, 81), (SPEC_K + 1, 81), (16, 81), (1, 1024)]
 # prompt (2896 positions, past 2 * CHUNK_Q: the online softmax), then
 # greedy decode steps
 LLAVA_PROMPT, LLAVA_STEPS = 16, 8
+# phase 13 serves glm4-9b and minicpm-2b at full width cut to this many
+# of their 40 layers (40 until phase 16 came: the script's time on a
+# slow host)
+FAMILY_LAYERS = 20
+
+
+def family_cut(arch: str):
+    """glm4-9b's or minicpm-2b's published config at ``FAMILY_LAYERS``
+    layers (every gate of their runs compares runs of one config)."""
+    from repro_torch import configs
+    return configs.get(arch).replace(num_layers=FAMILY_LAYERS)
 
 
 def cr_cut(**kw):
@@ -4468,8 +4555,10 @@ def llava_image(sched, smi: str) -> dict[str, int]:
     return launches
 
 
-def whisper_run(smi: str) -> dict[str, int]:
-    """whisper-tiny at full width and depth (4 + 4 layers), ``pum``:
+def whisper_run(smi: str, ibert: bool = False) -> dict[str, int]:
+    """whisper-tiny at full width and depth (4 + 4 layers), ``pum`` (with
+    ``ibert``, under ``pum.ibert``: the I-BERT softmax over the encoder's
+    frames and the cross-attention, the I-BERT GELU, the same launches):
     ``ServeEngine.generate(encoder_frames=)`` on 4 requests of 1500
     frames and a 4-token prompt, 16 tokens each: prefill (the encoder,
     24 MVM, then 40 decoder MVM) and 15 decode steps (40 MVM each: 8 of
@@ -4486,7 +4575,8 @@ def whisper_run(smi: str) -> dict[str, int]:
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
     dev = torch.device("cuda", 0)
-    cfg = configs.get("whisper-tiny").replace(pum=PUMConfig(mode="pum"))
+    cfg = configs.get("whisper-tiny").replace(
+        pum=PUMConfig(mode="pum", ibert=ibert))
     g = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, g, device=dev, pack=True)
     frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model),
@@ -4536,7 +4626,8 @@ def whisper_run(smi: str) -> dict[str, int]:
     decode = eng._scans[key][1]
     replay_ms = event_ms(decode.launch, reps=20)
     toks = WHISPER_BATCH * WHISPER_GEN
-    log(f"families {cfg.name} pum: {cfg.encoder_layers} encoder + "
+    log(f"families {cfg.name} pum{' ibert' if ibert else ''}: "
+        f"{cfg.encoder_layers} encoder + "
         f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}; "
         f"generate(encoder_frames=[{WHISPER_BATCH}, {WHISPER_FRAMES}, "
         f"{cfg.d_model}]) x {WHISPER_GEN} tokens: launches {launches}; "
@@ -4549,7 +4640,8 @@ def whisper_run(smi: str) -> dict[str, int]:
         f"{out[0, WHISPER_PROMPT:].tolist()}; gates failed: {failed} on "
         f"{smi}")
     if failed:
-        raise AssertionError(f"whisper: {failed}")
+        raise AssertionError(f"whisper{' ibert' if ibert else ''}: "
+                             f"{failed}")
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4567,9 +4659,9 @@ def families_phase(smi: str) -> dict[str, int]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
 
-    for arch, mode, cfg in (("glm4-9b", "pum", None),
-                            ("glm4-9b", "int8", None),
-                            ("minicpm-2b", "pum", None),
+    for arch, mode, cfg in (("glm4-9b", "pum", family_cut("glm4-9b")),
+                            ("glm4-9b", "int8", family_cut("glm4-9b")),
+                            ("minicpm-2b", "pum", family_cut("minicpm-2b")),
                             ("command-r-plus-104b", "pum", cr_cut()),
                             ("llava-next-mistral-7b", "pum", None)):
         res, counts = family_cli(arch, mode, smi, cfg)
@@ -5268,6 +5360,374 @@ def train_phase(dev, smi: str, host: bool = False
     return launches, figures
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the paper's LLM encoder with I-BERT (paper §5.2)
+# ---------------------------------------------------------------------------
+
+# RoBERTa-base's published widths (Liu et al. 2019), the model I-BERT was
+# evaluated on (Kim et al., ICML 2021), in the app's own structure (post-LN,
+# no biases, a 2048-row position table), at B x S = 8 x 512 (M = 4096)
+ENC = dict(layers=12, d_model=768, d_ff=3072, heads=12, vocab=50265)
+ENC_BATCH, ENC_SEQ = 8, 512
+# its projections by (K, N), counted over a layer: q, k, v, o; the FFN's
+# up and down: 72 launches a forward
+ENC_MVM = {(768, 768): 4, (768, 3072): 1, (3072, 768): 1}
+ENC_LAUNCHES = ENC["layers"] * sum(ENC_MVM.values())
+# (label, mode, prepacked) and the one MVM kernel each forward launches:
+# K1 on pum's packed planes, K2 on int8's packed weight and on both
+# modes' raw weights (its unpacked entry); bf16 none
+ENC_RUNS = [("pum", "pum", True, "bitslice_mvm_scaled"),
+            ("int8", "int8", True, "bitslice_mvm"),
+            ("pum raw", "pum", False, "bitslice_mvm"),
+            ("int8 raw", "int8", False, "bitslice_mvm"),
+            ("bf16", "bf16", False, None)]
+# the I-BERT functions at the encoder's shapes: (function, the float one it
+# replaces, input shape, the input's spread, calls a forward); the scores'
+# spread keeps the integer softmax's rows non-zero (its reciprocal
+# 2^15 // sum is 0 once a row's exponential codes sum past 2^15, as at
+# 512 keys of unit spread)
+IBERT_SHAPES = [
+    ("softmax_quantized", "softmax", (ENC_BATCH, ENC["heads"], ENC_SEQ,
+                                      ENC_SEQ), 4.0, ENC["layers"]),
+    ("gelu_quantized", "gelu", (ENC_BATCH, ENC_SEQ, ENC["d_ff"]), 1.0,
+     ENC["layers"]),
+    ("layernorm_quantized", "layernorm", (ENC_BATCH, ENC_SEQ,
+                                          ENC["d_model"]), 1.5,
+     2 * ENC["layers"]),
+]
+IBERT_RANGES = {"_softmax": "ibert_softmax", "_gelu": "ibert_gelu",
+                "_layernorm": "ibert_layernorm"}
+# phase 16's Qwen2.5-3B under pum.ibert: through the paged CLI at full
+# width, cut to this many of its 36 layers (every gate compares runs of
+# one config)
+IBERT_QWEN_LAYERS = 6
+
+
+def check_encoder_mvm(dev) -> dict[str, list[dict]]:
+    """Phase 3's checks at the encoder's shapes: K1 and K2 at M = 4096
+    (768x768, 768x3072, 3072x768), bit for bit, two calls bit-equal,
+    timed beside their bounds and ``torch._int_mm``; each row says which
+    of its bounds (bytes or operations) is the larger."""
+    import torch
+    bw, _, int8_rate = peaks(torch.cuda.get_device_name(dev))
+    m = ENC_BATCH * ENC_SEQ
+    cases = mvm_sweep(dev, {s: ENC["layers"] * c for s, c in
+                            ENC_MVM.items()}, ENC["layers"],
+                      "the encoder at RoBERTa-base's widths", [m])
+    out: dict[str, list[dict]] = {"bitslice_mvm_scaled": [],
+                                  "bitslice_mvm": []}
+    for case in cases:
+        for name, kern, planes in (("bitslice_mvm_scaled", "K1", 4),
+                                   ("bitslice_mvm", "K2", 1)):
+            row = dict(case[kern])
+            k, n = row["K"], row["N"]
+            by_bytes = (m * k + planes * k * n + 4 * m * n
+                        + (4 * m if planes > 1 else 0)) / bw
+            by_ops = mvm_ops(m, k, n) / int8_rate
+            row["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+            row["launches_per_forward"] = ENC["layers"] * ENC_MVM[(k, n)]
+            out[name].append(row)
+    return out
+
+
+def ibert_functions(dev, smi: str) -> None:
+    """Each I-BERT function at the encoder's shapes on f32 inputs drawn
+    from a seed: on the card bit-equal to the CPU (the same integer ops,
+    the same f32 scale arithmetic), two calls bit-equal; its device time
+    (a CUDA graph of 5 calls) beside its byte bound (the f32 input read
+    once, the f32 output written once) and the float function it
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.apps import encoder_app as tenc
+    from repro_torch.config import PUMConfig
+    from repro_torch.core import ibert
+    bw, _, _ = peaks(torch.cuda.get_device_name(dev))
+    g = torch.Generator(device=dev).manual_seed(16)
+    floats = {"softmax": lambda x: torch.softmax(x, -1),
+              "gelu": lambda x: F.gelu(x),
+              "layernorm": lambda x: tenc._layernorm(
+                  x, PUMConfig(mode="bf16"))}
+    for fn, flt, shape, spread, calls in IBERT_SHAPES:
+        x = torch.randn(shape, generator=g, device=dev) * spread
+        f = getattr(ibert, fn)
+        got = f(x)
+        torch.cuda.synchronize()
+        want = f(x.cpu())
+        if not torch.equal(got.cpu(), want) or not deterministic(
+                lambda: f(x)):
+            raise AssertionError(
+                f"{fn} at {list(shape)}: the card differs from the CPU "
+                f"(max|diff| {(got.cpu() - want).abs().max().item():.3g}) "
+                f"or two calls differ")
+        ms = device_ms(lambda: f(x), iters=5, reps=3)
+        plain = device_ms(lambda: floats[flt](x), iters=5, reps=3)
+        bound = 8 * x.numel() / bw * 1e3
+        log(f"ibert {fn} {list(shape)}: card == CPU bit for bit, two calls "
+            f"bit-equal; {ms:.4f} ms (byte bound {bound:.4f}, "
+            f"{share(bound, ms)} of bound; the float {flt} {plain:.4f} ms); "
+            f"{calls} calls a forward: {calls * ms:.3f} ms on {smi}")
+        del x, got, want
+
+
+def encoder_split(run) -> str:
+    """One ``run()`` under the profiler with the app's three I-BERT
+    functions in ranges of their own: the device ms of K1, the attention
+    einsums' GEMMs, each I-BERT function and the rest."""
+    import collections
+    import contextlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.apps import encoder_app as tenc
+    saved = {name: getattr(tenc, name) for name in IBERT_RANGES}
+
+    def ranged(name, f):
+        def g(*a, **kw):
+            with record_function(IBERT_RANGES[name]):
+                return f(*a, **kw)
+        return g
+
+    with contextlib.ExitStack() as stack:
+        stack.callback(lambda: [setattr(tenc, k, v)
+                                for k, v in saved.items()])
+        for name, f in saved.items():
+            setattr(tenc, name, ranged(name, f))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    # a range's device time is the sum of the kernels its ops launched
+    # (its span on the device would count the gaps between them)
+    kernels: dict[str, float] = {}
+    ranges = dict.fromkeys(IBERT_RANGES.values(), 0.0)
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            if evt.name not in ranges:
+                kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                     + evt.time_range.elapsed_us())
+        elif evt.name in ranges:
+            ranges[evt.name] += evt.device_time_total
+    total = sum(kernels.values())
+    if not total:
+        return "not measured (the profiler saw no device time)"
+    k1 = sum(us for k, us in kernels.items() if "bitslice" in k)
+    gemm = sum(us for k, us in kernels.items()
+               if "gemm" in k.lower() and "bitslice" not in k)
+    ib = sum(ranges.values())
+    parts = [("K1", k1), ("einsum GEMMs", gemm),
+             *[(k, us) for k, us in ranges.items()],
+             ("the rest", total - k1 - gemm - ib)]
+    return (f"{total / 1e3:.2f} ms of kernels: " + ", ".join(
+        f"{name} {us / 1e3:.2f} ms ({100 * us / total:.1f} %)"
+        for name, us in parts) + "; top kernels: "
+        + top_kernels(collections.Counter(kernels), 4))
+
+
+def encoder_app_run(dev, smi: str) -> dict[str, int]:
+    """The encoder at RoBERTa-base's widths on 8 x 512 tokens, weights
+    from a seed on the card, in every mode of ``ENC_RUNS`` with I-BERT
+    off and on.  Gated: a forward launches exactly ``ENC_LAUNCHES`` of
+    its mode's MVM kernel and nothing else (K3 and K4 never); the
+    ``torch`` backend's hidden states equal the ``cuda`` backend's bit
+    for bit (K1/K2 are exact, and nothing else differs); two runs give
+    the same bits; raw == prepacked in ``int8`` and ``pum``; finite.
+    Printed: ms a forward and sequences/s, the cosine of I-BERT's hidden
+    states with the float path's and the top-1 agreement of
+    ``encoder_logits`` (``pum``, at 2 layers, the JAX test's depth, and
+    at 12), the share of the I-BERT softmax's all-zero rows layer by
+    layer, the profiler's split of a ``pum`` I-BERT forward.  Returns
+    the launches of one forward a (mode, I-BERT) pair."""
+    import torch
+    from repro_torch.apps import encoder_app as tenc
+    from repro_torch.config import PUMConfig
+    from repro_torch.kernels import registry
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = tenc.encoder_init(g, **ENC, device=dev)
+    tokens = torch.randint(0, ENC["vocab"], (ENC_BATCH, ENC_SEQ),
+                           generator=g, device=dev, dtype=torch.int32)
+    packed = {mode: tenc.encoder_prepack(params, PUMConfig(mode=mode))
+              for mode in ("pum", "int8")}
+    torch.cuda.synchronize()
+    log(f"encoder: RoBERTa-base widths {ENC}, tokens [{ENC_BATCH}, "
+        f"{ENC_SEQ}], drawn and packed in {time.perf_counter() - t0:.2f} s")
+    launches: dict[str, int] = {}
+    hidden = {}
+    for label, mode, pre, kernel in ENC_RUNS:
+        for ib in (False, True):
+            pum = PUMConfig(mode=mode, ibert=ib)
+            p = packed[mode] if pre else params
+
+            def fwd(p=p, pum=pum):
+                with torch.inference_mode():
+                    return tenc.encoder_apply(p, tokens, pum,
+                                              heads=ENC["heads"])
+
+            registry.reset_launches()
+            h = fwd()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in registry.LAUNCHES.items() if v}
+            want = {kernel: ENC_LAUNCHES} if kernel else {}
+            again = fwd()
+            with registry.use_backend("torch"):
+                registry.reset_launches()
+                plain = fwd()
+                torch.cuda.synchronize()
+                plain_counts = {k: v for k, v in registry.LAUNCHES.items()
+                                if v}
+            name = f"{label}{' ibert' if ib else ''}"
+            gates = {
+                f"launches {want}": counts == want,
+                "the torch backend launches nothing": plain_counts == {},
+                "cuda == torch bit for bit": torch.equal(h, plain),
+                "two runs bit-equal": torch.equal(h, again),
+                "finite": bool(torch.isfinite(h).all()),
+                f"[{ENC_BATCH}, {ENC_SEQ}, {ENC['d_model']}] f32":
+                    tuple(h.shape) == (ENC_BATCH, ENC_SEQ, ENC["d_model"])
+                    and h.dtype == torch.float32,
+            }
+            failed = [k for k, ok in gates.items() if not ok]
+            ms = event_ms(fwd, reps=3)
+            log(f"encoder {name}: launches {counts}; {ms:.3f} ms a forward, "
+                f"{1e3 * ENC_BATCH / ms:.1f} sequences/s "
+                f"({1e3 * ENC_BATCH * ENC_SEQ / ms:.0f} tokens/s); "
+                f"max|cuda - torch| {(h - plain).abs().max().item():.3g}; "
+                f"gates failed: {failed} on {smi}")
+            if failed:
+                raise AssertionError(f"encoder {name}: {failed}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            hidden[label, ib] = h
+            del again, plain
+    for mode in ("int8", "pum"):
+        for ib in (False, True):
+            if not torch.equal(hidden[mode, ib], hidden[f"{mode} raw", ib]):
+                raise AssertionError(f"encoder {mode} (ibert {ib}): raw "
+                                     f"and prepacked weights differ")
+    agreement = []
+    zero_rows: list[float] = []
+    softmax = tenc._softmax
+
+    def spy(x, pum):
+        probs = softmax(x, pum)
+        if pum.ibert:
+            zero_rows.append(float((probs.sum(-1) == 0).float().mean()))
+        return probs
+
+    for depth in (2, ENC["layers"]):
+        cut = dict(packed["pum"], layers=packed["pum"]["layers"][:depth])
+        tenc._softmax = spy
+        try:
+            with torch.inference_mode():
+                h = [tenc.encoder_apply(cut, tokens,
+                                        PUMConfig(mode="pum", ibert=ib),
+                                        heads=ENC["heads"]).double()
+                     for ib in (False, True)]
+        finally:
+            tenc._softmax = softmax
+            top = [tenc.encoder_logits(cut, tokens,
+                                       PUMConfig(mode="pum", ibert=ib),
+                                       heads=ENC["heads"]).argmax(-1)
+                   for ib in (False, True)]
+        cos = float((h[0] * h[1]).sum() / (h[0].norm() * h[1].norm()))
+        agree = float((top[0] == top[1]).float().mean())
+        agreement.append(f"{depth} layers: cosine of the hidden states "
+                         f"{cos:.4f}, top-1 agreement of encoder_logits "
+                         f"{agree:.4f}")
+        del h, top
+    log(f"encoder: raw == prepacked bit for bit in int8 and pum (I-BERT "
+        f"off and on); pum I-BERT against pum float at "
+        f"{'; at '.join(agreement)}; the I-BERT softmax's all-zero rows "
+        f"(a row's exponential codes summing past 2^15), layer by layer "
+        f"of the 12-layer forward: {zero_rows[2:]}")
+    split = encoder_split(lambda: tenc.encoder_apply(
+        packed["pum"], tokens, PUMConfig(mode="pum", ibert=True),
+        heads=ENC["heads"]))
+    log(f"encoder pum ibert forward under the profiler: {split} on {smi}")
+    del hidden, params, packed
+    return launches
+
+
+def qwen_ibert(smi: str) -> dict[str, int]:
+    """Qwen2.5-3B at full width cut to ``IBERT_QWEN_LAYERS`` layers under
+    ``pum.ibert`` through the paged CLI on phase 4's trace (chunked
+    prefill): its 252-per-36-layer MVM launches a step or chunk on K1
+    and no K3 (the paged branch takes the I-BERT softmax in the plain
+    composition); graphs == eager bit for bit on a chunk and a step; the
+    ``cuda`` and ``torch`` backends' logits bit for bit (K3 is off the
+    path and K1 is exact); finite.  Returns the CLI run's launches."""
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.config import PUMConfig
+    from repro_torch.kernels import registry
+    from repro_torch.launch import serve
+    cfg = configs.get("qwen2.5-3b").replace(
+        num_layers=IBERT_QWEN_LAYERS, pum=PUMConfig(mode="pum", ibert=True))
+    registry.reset_launches()
+    res = serve.main(SERVE_ARGS + ["--pum-mode", "pum"], cfg=cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in registry.LAUNCHES.items() if v}
+    sched = res["scheduler"]
+    mvm, _ = per_pass(sched.cfg)
+    n = sched.decode_steps + sched.prefill_chunks
+    want = {"bitslice_mvm_scaled": mvm * n}
+    graph_vs_eager(sched)
+    registry.reset_launches()
+    a = chunk_and_step(sched, sched.params, "cuda")
+    direct = {k: v for k, v in registry.LAUNCHES.items() if v}
+    b = chunk_and_step(sched, sched.params, "torch")
+    gates = {
+        f"launches {want} ({mvm} K1 a step or chunk), no K3":
+            launches == want,
+        "the chunk and the step launch K1 alone": direct == {
+            "bitslice_mvm_scaled": 2 * mvm},
+        "cuda == torch logits bit for bit": torch.equal(a, b),
+        "finite logits": bool(torch.isfinite(a).all()),
+        "6 requests x 16 tokens": len(res["completions"]) == 6 and all(
+            len(c.tokens) == 16 for c in res["completions"].values()),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    log(f"qwen2.5-3b pum ibert paged: {cfg.num_layers} of 36 layers, "
+        f"{sched.decode_steps} decode steps + {sched.prefill_chunks} chunks; "
+        f"launches {launches}; decode_ms_per_step {res['decode_ms']:.3f}; "
+        f"programs {sched.step_programs()}; gates failed: {failed} on {smi}")
+    if failed:
+        raise AssertionError(f"qwen2.5-3b ibert: {failed}")
+    del res, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encoder_phase(dev, smi: str) -> dict[str, int]:
+    """Phase 16; returns each kernel's launches on its main paths."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    launches: dict[str, int] = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    ibert_functions(dev, smi)
+    add(encoder_app_run(dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encoder: the app done at {time.perf_counter() - t0:.1f} s of the "
+        f"phase")
+    add(whisper_run(smi, ibert=True))
+    add(qwen_ibert(smi))
+    if launches.get("paged_attention") or launches.get("gf2_mvm") \
+            or launches.get("gf2_mvm_packed"):
+        raise AssertionError(f"phase 16 launched K3 or K4: {launches}")
+    log(f"encoder: phase 16 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 KERNELS = {
     "bitslice_mvm_scaled": dict(
         route="cuda",
@@ -5300,7 +5760,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["kernels", "cnn", "contiguous",
                                        "xlstm", "moe", "hybrid",
-                                       "families", "frontend", "train"],
+                                       "families", "frontend", "train",
+                                       "encoder"],
                     default=None)
     ap.add_argument("--profile-host", action="store_true",
                     help="phase 15: profile the host's operators in each "
@@ -5392,6 +5853,14 @@ def main(argv=None) -> int:
         log(f"phase 15 done at {time.perf_counter() - start:.1f} s")
         return 0
 
+    if args.only == "encoder":
+        cases = check_encoder_mvm(dev)
+        encoder_launches = encoder_phase(dev, smi)
+        log(json.dumps({"kernels": {"launches": encoder_launches,
+                                    "encoder_shapes": cases}}))
+        log(f"phase 16 done at {time.perf_counter() - start:.1f} s")
+        return 0
+
     if args.only == "families":
         cases = check_family_kernels(dev, gpu_name)
         family_launches = families_phase(smi)
@@ -5416,6 +5885,8 @@ def main(argv=None) -> int:
     for name, cases in check_family_kernels(dev, gpu_name).items():
         rows[name]["family_shapes"] = cases
     rows["bitslice_mvm"]["train_shapes"] = check_train_mvm(dev, gpu_name)
+    for name, cases in check_encoder_mvm(dev).items():
+        rows[name]["encoder_shapes"] = cases
     rows.update(check_gf2(dev, gpu_name))
     if args.only == "kernels":
         log(json.dumps({"kernels": rows}))
@@ -5459,6 +5930,9 @@ def main(argv=None) -> int:
     for k, v in train_phase(dev, smi, args.profile_host)[0].items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 15 done at {time.perf_counter() - start:.1f} s")
+    for k, v in encoder_phase(dev, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 16 done at {time.perf_counter() - start:.1f} s")
     out = []
     for name, meta in KERNELS.items():
         n = launches.get(name, 0)

@@ -121,10 +121,14 @@ def opt_state_from_numpy(tree: dict[str, Any], cfg: ModelConfig,
     return out
 
 
-def resnet_params_from_numpy(tree: dict[str, Any],
-                             device: str | torch.device = "cuda",
-                             ) -> dict[str, Any]:
-    """The port's ResNet params (``models/resnet.py``) from a numpy copy
-    of a JAX ResNet param tree: the same nested dicts, tensors for
-    arrays."""
+def tree_from_numpy(tree: dict[str, Any],
+                    device: str | torch.device = "cuda") -> dict[str, Any]:
+    """The port's params from a numpy copy of a JAX param tree that has
+    no stacked blocks: the same nested dicts and lists, tensors for
+    arrays, a ``PackedLinear`` for each packed-linear dict.  The ResNet's
+    (``models/resnet.py``) and the encoder app's (``apps/encoder_app.py``:
+    ``embed``, ``pos`` and a ``layers`` list of bare matrices)."""
     return _convert(tree, resolve_device(device), None)
+
+
+resnet_params_from_numpy = encoder_params_from_numpy = tree_from_numpy

@@ -73,6 +73,11 @@ replayed for every token, or with ``--loop`` one decode step per token
 dispatched from Python; it prints the reference
 CLI's line (``decode=scan|loop``, tokens, tok/s).
 
+``--no-prepack`` serves the float weights of ``int8``/``pum`` as drawn,
+quantised on every call (the raw-weight forwards: K2's unpacked entry
+on the card), as the reference's ``--no-prepack`` does; the tokens are
+those of the packed weights.
+
 Weights are random, drawn on the device from ``--seed``; ``--reduced``
 serves the arch's miniature (the CPU tests do, with ``--device cpu``).
 ``--pum-mode bf16`` serves the float weights unpacked.  ``--temperature``
@@ -86,6 +91,7 @@ beside the device it ran on.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -93,7 +99,7 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch.config import ModelConfig, PUMConfig
+from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve import (ChaosPolicy, ContinuousBatchingScheduler,
@@ -133,6 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["bf16", "int8", "pum"])
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="every request's sampling temperature (0: greedy)")
+    ap.add_argument("--no-prepack", action="store_true",
+                    help="skip load-time weight packing (per-call quant)")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="tokens per KV block of the paged pool (0: "
                          "contiguous per-slot windows)")
@@ -201,8 +209,9 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     the front end, its results and its metrics snapshot in place of the
     completions.  ``cfg``,
     when given, is served in place of ``--arch``'s config (its mode from
-    ``--pum-mode``): a caller's cut of a published config, such as
-    Jamba's one period."""
+    ``--pum-mode``, the rest of its ``PUMConfig`` as given): a caller's
+    cut of a published config, such as Jamba's one period, or a config
+    with ``pum.ibert``."""
     args = build_parser().parse_args(argv)
     if args.frontend and args.batch_slots <= 0:
         raise ValueError("--frontend serves through the scheduler; set "
@@ -211,18 +220,22 @@ def main(argv: list[str] | None = None, *, cfg: ModelConfig | None = None
     if cfg is None:
         cfg = configs.get_reduced(args.arch) if args.reduced \
             else configs.get(args.arch)
-    cfg = cfg.replace(pum=PUMConfig(mode=args.pum_mode))
+    # the mode from --pum-mode; the rest of a given cfg's PUMConfig (say
+    # ``ibert``) stays
+    cfg = cfg.replace(pum=dataclasses.replace(cfg.pum, mode=args.pum_mode))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
     # each layer packed as soon as it is drawn: the float tree never
     # lives whole on the card (glm4-9b's is 37.6 GB)
-    params = lm.init_params(cfg, gen, device=dev, pack=True)
+    prepack = not args.no_prepack
+    params = lm.init_params(cfg, gen, device=dev, pack=prepack)
     max_len = args.prompt_len + args.gen + 1
     if args.batch_slots <= 0:
         return static_batch(cfg, params, args, dev, max_len)
     n = args.requests or 4 * args.batch_slots
     sched = ContinuousBatchingScheduler(
         cfg, params, num_slots=args.batch_slots, max_len=max_len,
+        prepack=prepack,
         kv_block_size=args.kv_block_size, num_kv_blocks=args.num_kv_blocks,
         chunked_prefill=args.chunked_prefill,
         prefix_cache=args.prefix_cache, speculate_k=args.speculate_k,
@@ -290,7 +303,12 @@ def summary(sched, args) -> str:
     kv = (f"paged(block={args.kv_block_size}, {blocks}{chunked})"
           if sched.paged else f"contiguous(max_len={sched.max_len})")
     return (f"arch={cfg.name} layers={cfg.num_layers} d_model={cfg.d_model} "
-            f"mode={args.pum_mode} slots={args.batch_slots} kv={kv}")
+            f"mode={args.pum_mode} prepack={_prepacked(args)} "
+            f"slots={args.batch_slots} kv={kv}")
+
+
+def _prepacked(args) -> str:
+    return "off" if args.no_prepack or args.pum_mode == "bf16" else "on"
 
 
 def build_frontend(sched, args) -> ServeFrontend:
@@ -374,7 +392,8 @@ def static_batch(cfg, params, args, dev: torch.device, max_len: int) -> dict:
     toks = args.batch * args.gen
     dev_name = device_name(dev)
     print(f"arch={cfg.name} mode={args.pum_mode} "
-          f"decode={'loop' if args.loop else 'scan'} device={dev_name} "
+          f"decode={'loop' if args.loop else 'scan'} "
+          f"prepack={_prepacked(args)} device={dev_name} "
           f"generated {toks} tokens in {wall_s:.2f}s "
           f"({toks / wall_s:.1f} tok/s incl. build)")
     print("sample:", out[0, :32].tolist())

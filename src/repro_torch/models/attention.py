@@ -16,6 +16,15 @@ streams it.  Cross-attention (``cross_kv``: an encoder-decoder's, and
 the bidirectional self-attention of its encoder) takes its K/V as
 given, no RoPE and a full mask, through the plain composition, as the
 reference's does.
+
+Under ``pum.ibert`` every plain composition takes the I-BERT integer
+softmax (:func:`repro_torch.core.ibert.softmax_quantized`, 8 bits, one
+scale over the whole score tensor) in place of the float softmax, with
+no softcap, and the paged branch never takes the kernel, as the
+reference's does; the online softmax of a long prompt stays float.  The
+whole-tensor scale is the reference's: a masked score (``NEG_INF``)
+sets it so that every real score quantises to code 0, and a masked
+I-BERT softmax gives zero probabilities there too.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import ibert
 from repro_torch.kernels import registry
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import (NEG_INF, causal_mask,
@@ -138,8 +148,6 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     kvh = cfg.num_kv_heads
     g = cfg.num_heads // kvh
     pum = cfg.pum
-    if pum.ibert:
-        raise NotImplementedError("I-BERT integer softmax is not ported")
 
     q = layers.linear(p["wq"], x, pum).reshape(b, s, kvh, g, hd)
     if cross_kv is None:
@@ -153,10 +161,14 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k, v = cross_kv
 
     softcap = cfg.attn_logit_softcap
+
+    def attend(q, k, v, mask):
+        return _plain_attention(q, k, v, mask, softcap, pum.ibert)
+
     if cross_kv is not None:
         mask = torch.ones((s, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        out = plain_attention(q, k, v, mask, softcap)
+        out = attend(q, k, v, mask)
     elif cache is not None and "k_pool" in cache:
         cache_index = torch.as_tensor(cache_index, dtype=torch.int32,
                                       device=x.device)
@@ -173,7 +185,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 f"{2 * CHUNK_Q}; enable chunked_prefill to stream long "
                 f"prompts")
         backend = registry.resolve_backend(x, kernel=pa_ops.NAME)
-        if backend == KernelBackend.CUDA and s <= _KERNEL_MAX_S:
+        if (backend == KernelBackend.CUDA and not pum.ibert
+                and s <= _KERNEL_MAX_S):
             _, _, out = pa_ops.paged_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 cache["k_pool"], cache["v_pool"], block_table,
@@ -185,7 +198,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache, k, v, block_table, cache_index, kv_len,
                 write_table=write_table)
             mask = causal_mask(cache_index, s, k_all.shape[1])
-            out = plain_attention(q, k_all, v_all, mask, softcap)
+            out = attend(q, k_all, v_all, mask)
     elif cache is not None:
         cache_index = torch.as_tensor(cache_index, device=x.device)
         _write_contiguous(cache["k"], k, cache_index)
@@ -200,22 +213,42 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             out = _chunked_attention(q, cache["k"], cache["v"],
                                      cache_index, softcap)
         elif cache_index.ndim == 1:
-            out = plain_attention(q, cache["k"], cache["v"],
-                                  causal_mask(cache_index, s, t), softcap)
+            out = attend(q, cache["k"], cache["v"],
+                         causal_mask(cache_index, s, t))
         else:
             kpos = torch.arange(t, device=x.device)
             mask = kpos[None, :] <= (cache_index + torch.arange(
                 s, device=x.device))[:, None]
-            out = plain_attention(q, cache["k"], cache["v"], mask, softcap)
+            out = attend(q, cache["k"], cache["v"], mask)
     elif s > 2 * CHUNK_Q:
         out = _chunked_attention(q, k, v, 0, softcap)
     else:
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                      device=x.device))
-        out = plain_attention(q, k, v, mask, softcap)
+        out = attend(q, k, v, mask)
 
     out = out.to(x.dtype).reshape(b, s, cfg.num_heads * hd)
     return layers.linear(p["wo"], out, pum), cache
+
+
+def _plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor, softcap: float, ibert_mode: bool
+                     ) -> torch.Tensor:
+    """The plain composition (:func:`plain_attention`, the kernel's
+    oracle), or under ``ibert_mode`` the reference's I-BERT variant:
+    the same f32 scores and mask, then ``softmax_quantized`` over the
+    whole tensor in place of the float softmax, without the softcap."""
+    if not ibert_mode:
+        return plain_attention(q, k, v, mask, softcap)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bksgt", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    m = mask[None, None, :, None, :] if mask.ndim == 2 \
+        else mask[:, None, :, None, :]
+    scores = torch.where(m, scores, torch.full((), NEG_INF,
+                                               device=scores.device))
+    probs = ibert.softmax_quantized(scores, bits=8, axis=-1)
+    return torch.einsum("bksgt,btkd->bskgd", probs.to(v.dtype), v)
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

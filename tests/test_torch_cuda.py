@@ -1288,3 +1288,60 @@ def test_train_steps_on_the_card_equal_the_torch_backend(dev):
     assert all(torch.equal(m0[k], m1[k]) for m0, m1 in zip(ends[0][1],
                                                          ends[1][1])
                for k in m0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absmax", [0.0, 1e-9, 1e-3, 3.0])
+def test_ibert_on_the_card_equals_the_cpu(dev, absmax):
+    """Every I-BERT wrapper and integer kernel on the card: the CPU's
+    codes, scales and floats bit for bit (the same int32 ops with their
+    wraparound, the same f32 scale arithmetic), at the absmaxes where
+    the saturating cast and the subnormal flush act."""
+    from repro_torch.core import ibert
+    g = torch.Generator().manual_seed(int(absmax * 1e3) + 1)
+    x = torch.randn((3, 4, 32, 48), generator=g)
+    x = x / x.abs().max() * absmax
+    for fn in ("gelu_quantized", "softmax_quantized",
+               "layernorm_quantized"):
+        got = getattr(ibert, fn)(x.to(dev)).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           getattr(ibert, fn)(x).view(torch.int32)), fn
+    t, td = ibert.quantize(x), ibert.quantize(x.to(dev))
+    for fn in ("i_gelu", "i_softmax", "i_layernorm"):
+        want, got = getattr(ibert, fn)(t.q, t.s), getattr(ibert, fn)(
+            td.q, td.s)
+        assert torch.equal(got[0].cpu(), want[0]), fn
+        assert torch.equal(got[1].cpu().view(torch.int32),
+                           want[1].view(torch.int32)), fn
+    n = torch.randint(0, 2 ** 31 - 1, (4096,), generator=g,
+                      dtype=torch.int32)
+    assert torch.equal(ibert.i_sqrt(n.to(dev)).cpu(), ibert.i_sqrt(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,packed,kernel", [
+    ("pum", True, "bitslice_mvm_scaled"), ("int8", True, "bitslice_mvm"),
+    ("pum", False, "bitslice_mvm"), ("bf16", False, None)])
+@pytest.mark.parametrize("ibert", [False, True])
+def test_encoder_on_the_card_equals_the_torch_backend(dev, mode, packed,
+                                                      kernel, ibert):
+    """The encoder app at 2 layers: 6 MVM launches a layer on the mode's
+    kernel (none in bf16), hidden states bit-equal to the torch
+    backend's, which launches nothing."""
+    from repro_torch.apps import encoder_app
+    from repro_torch.config import PUMConfig
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = encoder_app.encoder_init(g, layers=2, d_model=64, d_ff=128,
+                                 vocab=100, device=dev)
+    pum = PUMConfig(mode=mode, ibert=ibert)
+    if packed:
+        p = encoder_app.encoder_prepack(p, pum)
+    toks = torch.randint(0, 100, (2, 16), generator=g, device=dev)
+    registry.reset_launches()
+    got = encoder_app.encoder_apply(p, toks, pum)
+    assert dict(registry.LAUNCHES) == ({kernel: 12} if kernel else {})
+    with registry.use_backend("torch"):
+        registry.reset_launches()
+        want = encoder_app.encoder_apply(p, toks, pum)
+        assert not any(registry.LAUNCHES.values())
+    assert torch.equal(got, want)

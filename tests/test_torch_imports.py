@@ -23,8 +23,10 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.apps import aes_app
+from repro_torch import bridge
+from repro_torch.apps import aes_app, encoder_app
 from repro_torch.config import PUMConfig, TrainConfig
+from repro_torch.core.prepack import PackedLinear
 from repro_torch.core.hct import DarthPUMDevice
 from repro_torch.launch import aes, serve, train
 from repro_torch.models import lm
@@ -65,7 +67,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                      "optim/adamw.py", "optim/schedules.py",
                      "train/step.py", "train/trainer.py",
                      "ckpt/checkpoint.py", "data/synthetic.py",
-                     "dist/compress.py", "launch/train.py", "tree.py"}
+                     "dist/compress.py", "launch/train.py", "tree.py",
+                     "core/ibert.py", "apps/encoder_app.py"}
     for f in files:
         bad = _imported_roots(f) & set(FORBIDDEN)
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -95,6 +98,11 @@ def test_train_modules_load_no_jax():
     """Nor does the training path: the launcher and all it imports (the
     trainer, step, optimiser, checkpoints, data and compression)."""
     _loads_no_jax("repro_torch.launch.train")
+
+
+def test_encoder_modules_load_no_jax():
+    """Nor do the encoder app and the I-BERT kernels."""
+    _loads_no_jax("repro_torch.apps.encoder_app")
 
 
 @pytest.fixture
@@ -130,6 +138,15 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encoder_app.encoder_init(torch.Generator(), layers=1, d_model=8,
+                                 d_ff=16, vocab=10)
+    enc = encoder_app.encoder_init(torch.Generator(), layers=1, d_model=8,
+                                   d_ff=16, vocab=10, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bridge.encoder_params_from_numpy(
+            {"embed": enc["embed"].numpy(), "pos": enc["pos"].numpy(),
+             "layers": []})
 
 
 ARCHS = ["qwen2.5-3b", "xlstm-350m"]
@@ -161,6 +178,43 @@ def test_serve_cli_on_the_cpu_when_asked(mode, arch, capsys):
     # every prompt of 3..9 tokens streams in ceil(len / 4) chunks
     assert sched.prefill_chunks == sum(-(-len(r.prompt) // 4)
                                        for r in res["requests"])
+
+
+@pytest.mark.parametrize("layout", [["--kv-block-size", "4",
+                                     "--chunked-prefill"],
+                                    ["--kv-block-size", "0"],
+                                    ["--batch-slots", "0"]],
+                         ids=["paged", "contiguous", "static"])
+def test_serve_cli_no_prepack(layout, capsys):
+    """``--no-prepack`` serves the float weights quantised per call
+    (``int8``): the same tokens as the prepacked default."""
+    args = ["--reduced", "--device", "cpu", "--pum-mode", "int8",
+            "--batch-slots", "2", "--requests", "3", "--prompt-len", "9",
+            "--gen", "5"] + layout
+    packed = serve.main(args)
+    raw = serve.main(args + ["--no-prepack"])
+    out = capsys.readouterr().out
+    assert "prepack=on" in out and "prepack=off" in out
+    if "out" in raw:
+        assert torch.equal(raw["out"], packed["out"])
+        params = raw["engine"].params
+    else:
+        assert {r: c.tokens for r, c in raw["completions"].items()} == \
+            {r: c.tokens for r, c in packed["completions"].items()}
+        params = raw["scheduler"].params
+    assert not any(isinstance(w, PackedLinear)
+                   for w in _leaves(params["blocks"]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def test_serve_cli_samples_at_its_temperature(capsys):
